@@ -1,0 +1,6 @@
+"""Inference engine and the two-stage pipeline of the port."""
+
+from unet_goolenet_tpu_torch.pipeline.two_stage import (
+    TwoStagePipeline, extract_roi, preprocess_gray)
+
+__all__ = ["TwoStagePipeline", "extract_roi", "preprocess_gray"]
