@@ -6,21 +6,35 @@ Phases, one line each (the first failure exits non-zero):
   1. device: CUDA must be available; the card's name and power limit.
   2. build: compile the CUDA kernels from unet_goolenet_tpu_torch/csrc.
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main path's shapes (N=4, x1 4x224x224x64, y 4x112x112x64) in float32
-     (TF32 off) and bfloat16, and at a ragged 36x52 level.
-  4. e2e: 8 seeded gray PNGs (400x500 and 360x480) and two seeded
-     reference-named checkpoints through `apps.infer_e2e.main`, bf16 then
-     float32; result.txt must hold 8 grades in [0, 6) and both kernels must
-     have launched. Then, in float32, the pipeline (kernel path) against the
-     plain composition (engine.up1_plain) on 4 images, with the classifier's
-     fc bias centred on them so that they get at least 2 distinct grades:
-     equal grades, seg logits within SEG_TOL of the largest |logit|, masks
-     differing only where |logit| < 1e-3.
-  5. timing (CUDA events, after warm-up): infer_grades images/s at batch 16
-     and 64 in bf16 and float32 (median of 7 rounds); each kernel against its
-     plain version at batch 16; a per-layer split of one bf16 batch-64 call;
-     host time per bf16 call at batch 16 and 64, and one profiler trace of
-     each (device busy vs wall, host syncs, top kernels).
+     the main path's shapes for N=4 at 224^2 (up1: x1 4x224x224x64, y
+     4x112x112x64; pool_down1: x1 4x224x224x64; up_gate_dense and up_level at
+     up2, up3 and up4: (C, cq) = (128, 64) at 112^2, (256, 128) at 56^2,
+     (512, 256) at 28^2) in float32 (TF32 off) and bfloat16, and at a ragged
+     level (up1 36x52; the others C = 256 at 20x28).
+  4. e2e, default configuration: 8 seeded gray PNGs (400x500 and 360x480)
+     and two seeded reference-named checkpoints through `apps.infer_e2e.main`,
+     bf16 then float32; result.txt must hold 8 grades in [0, 6) and both up1
+     kernels must have launched. Then, in float32, the pipeline (kernel path)
+     against the plain composition (engine.unet_trunk + engine.up1_plain) on
+     4 images, with the classifier's fc bias centred on them so that they get
+     at least 2 distinct grades: equal grades, seg logits within SEG_TOL of
+     the largest |logit|, masks differing only where |logit| < 1e-3.
+  5. e2e, all-fused configuration (fused_up2, fused_up34, fused_down1: the
+     stage-2 trainer's ROI extractor runs it): the same float32 check of
+     TwoStagePipeline against the plain composition, then one bf16 batch-16
+     call of apps.train_cls.make_roi_extractor(fused=True); all five
+     kernels' counters, set to 0 just before, must be > 0.
+  6. timing (CUDA events, after warm-up): infer_grades images/s at batch 16
+     and 64 in bf16 and float32 (median of 7 rounds), the default, all-fused
+     and up2 + down1 configurations in turns (forwards, then backwards);
+     each kernel at batch 16 against its plain version and the default
+     configuration's cuDNN path for the same work, with its bound; the level
+     kernel's device time by launch (deconv, d2 + gate combine, pair conv,
+     block1 or block1 + head) at up1 and each dense level, from a profiler
+     trace; a per-layer split of one bf16 batch-64 call; host time per bf16
+     call at batch 16 and 64, and one profiler trace of each, and of one
+     all-fused bf16 batch-64 call (device busy vs wall, host syncs, top
+     kernels).
 Then a JSON line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Weights and images are random, made from seeds; nothing is downloaded.
@@ -31,9 +45,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from functools import partial
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -49,11 +66,27 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # largest |logit|: the same bound as the kernels' own float32 check
 SEG_TOL = 1e-4
 KERNELS = {
-    "up1_gate": ("unet_goolenet_tpu_torch/csrc/up1_gate.cu",
+    "up1_gate": ("unet_goolenet_tpu_torch/csrc/gate.cu",
                  "unet_goolenet_tpu/ops/pallas/up1.py:480"),
-    "up1_tail": ("unet_goolenet_tpu_torch/csrc/up1_tail.cu",
+    "up1_tail": ("unet_goolenet_tpu_torch/csrc/up_level.cu",
                  "unet_goolenet_tpu/ops/pallas/up1.py:521"),
+    "pool_down1": ("unet_goolenet_tpu_torch/csrc/down1.cu",
+                   "unet_goolenet_tpu/ops/pallas/down1.py:108"),
+    "up_gate_dense": ("unet_goolenet_tpu_torch/csrc/gate.cu",
+                      "unet_goolenet_tpu/ops/pallas/up2.py:126"),
+    "up_level": ("unet_goolenet_tpu_torch/csrc/up_level.cu",
+                 "unet_goolenet_tpu/ops/pallas/up2.py:299"),
 }
+FUSED = dict(fused_up2=True, fused_up34=True, fused_down1=True)
+# the configurations timed end to end: the default, all-fused, and the levels
+# whose kernels beat the default path alone (up2, pool + down1)
+CONFIGS = {"default": {}, "fused": FUSED, "up2_down1": dict(fused_up2=True, fused_down1=True)}
+# the decoder levels up2, up3, up4 at 224^2: (output size, C, cq)
+LEVELS = ((112, 128, 64), (56, 256, 128), (28, 512, 256))
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, float32 FMA (the
+# kernels' float32 route), and device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -85,6 +118,11 @@ def cuda_ms_spread(fn, rounds: int = 7, reps: int = 3):
     return samples[len(samples) // 2], samples[0], samples[-1]
 
 
+def device_us(e) -> float:
+    """Device microseconds of a profiler key_averages() entry."""
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
 def set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
     torch.backends.cuda.matmul.allow_tf32 = on
@@ -93,35 +131,178 @@ def set_tf32(on: bool) -> None:
 # ------------------------------------------------------------------ inputs
 
 
-def up1_inputs(n, h, w, dtype, dev, seed):
-    """Seeded inputs of one up1 level at output size (h, w), C = 64, as the
-    plain versions take them."""
-    g = torch.Generator().manual_seed(seed)
-    r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(dev)
-    c = 64
-    k = (9 * c) ** -0.5
-    gate = dict(x1=r(n, h, w, c).to(dtype), w=r(c, c, 3, 3, sc=k), b=r(c, sc=0.1))
-    tail = dict(y=r(n, h // 2, w // 2, c).to(dtype), e1=r(n, h, w, c).abs().to(dtype),
-                gate1p=(1 + torch.rand(n, c, generator=g)).to(dev),
-                w_up=r(c, c, 2, 2, sc=0.12), b_up=r(c, sc=0.1),
-                w_d2=r(c, c, 3, 3, sc=k), b_d2=r(c, sc=0.1),
-                w_pair=r(c, 2 * c, 3, 3, sc=k / 1.4142), b_pair=r(c, sc=0.1),
-                w_blk1=r(c, c, 3, 3, sc=k), b_blk1=r(c, sc=0.1),
-                w_outc=r(1, c, 1, 1, sc=c ** -0.5), b_outc=r(1, sc=0.1))
-    return gate, tail
+class Case(NamedTuple):
+    """One kernel call at one shape, with what it is held against and timed
+    beside: its plain version, and the default configuration's cuDNN path
+    for the same work. flops and nbytes are the work the function needs:
+    each input (weights included) read once, each output written once."""
+    name: str
+    label: str
+    kern: Callable
+    plain: Callable
+    default: Callable
+    flops: float
+    nbytes: float
+
+    def bound(self, dtype) -> Tuple[float, str]:
+        """(ms, "operations" or "bytes"): the least time the card could take."""
+        ops, mem = self.flops / PEAK_FLOPS[dtype], self.nbytes / PEAK_BYTES
+        return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
 
 
-def kernel_calls(n, h, w, dtype, dev, seed) -> dict:
-    """{kernel name: (kernel call, plain call)} on up1_inputs; the kernels'
-    weights are laid out before, as fold_unet does."""
+def _rand(g: torch.Generator, dev):
+    return lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(dev)
+
+
+def _cast(dtype, *ts) -> tuple:
+    return tuple(t.to(dtype) for t in ts)
+
+
+def _nbytes(dtype, *ts, out: int = 0, biases=()) -> float:
+    """Bytes of the tensors ts and of `out` more elements in dtype, and of
+    float32 biases."""
+    es = torch.finfo(dtype).bits / 8
+    return es * (sum(t.numel() for t in ts) + out) + 4.0 * sum(b.numel() for b in biases)
+
+
+def _cbn(x, w, b):
+    from unet_goolenet_tpu_torch.ops.conv import conv2d
+
+    return torch.relu(conv2d(x, w, b, padding=1))
+
+
+def default_gate(x, w, b):
+    """The default configuration's gate pass: cuDNN conv, then the stats."""
+    e = _cbn(x, w, b)
+    return e, e.float().mean(dim=(1, 2)), e.float().amax(dim=(1, 2))
+
+
+def default_level(x, e1, g1p, w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1):
+    """The default configuration's decoder level after the gate pass
+    (engine._up_alig's ops), in the weights' dtype."""
+    from unet_goolenet_tpu_torch.ops.conv import conv_transpose2x2
+
+    up = conv_transpose2x2(x, w_up, b_up)
+    gated = e1 + g1p[:, None, None, :] * _cbn(up, w_d2, b_d2)
+    return _cbn(_cbn(torch.cat([up, gated], dim=-1), w_pair, b_pair), w_blk1, b_blk1)
+
+
+def default_down1(x1, w1, b1, w2, b2):
+    from unet_goolenet_tpu_torch.ops.pool import max_pool2d
+
+    return _cbn(_cbn(max_pool2d(x1, 2), w1, b1), w2, b2)
+
+
+def level_weights(r, c: int, cq: int) -> tuple:
+    """Seeded (w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1) of one
+    level, in the layouts the plain versions take, He-scaled."""
+    return (r(c, c, 2, 2, sc=c ** -0.5), r(c, sc=0.1), r(c, c, 3, 3, sc=(9 * c) ** -0.5),
+            r(c, sc=0.1), r(cq, 2 * c, 3, 3, sc=(18 * c) ** -0.5), r(cq, sc=0.1),
+            r(cq, cq, 3, 3, sc=(9 * cq) ** -0.5), r(cq, sc=0.1))
+
+
+def level_flops(px: int, c: int, cq: int) -> float:
+    """deconv + d2 + pair + block1 per output pixel, times the pixels."""
+    return float(px) * (2 * c * c + 18 * c * c + 36 * c * cq + 18 * cq * cq)
+
+
+def up1_cases(n, h, w, dtype, dev, seed) -> list:
+    """The two up1 kernels at output size (h, w), C = 64, one class."""
+    from unet_goolenet_tpu_torch.ops.conv import conv2d
     from unet_goolenet_tpu_torch.ops.kernels import up1 as K
 
-    gi, ti = up1_inputs(n, h, w, dtype, dev, seed)
-    gw = K.gate_weights(gi["w"], gi["b"], dtype)
-    tw = K.tail_weights(*list(ti.values())[3:], dtype=dtype)
-    return {"up1_gate": (lambda: K.up1_gate(gi["x1"], gw), lambda: K.up1_gate_ref(**gi)),
-            "up1_tail": (lambda: K.up1_tail(ti["y"], ti["e1"], ti["gate1p"], tw),
-                         lambda: K.up1_tail_ref(**ti))}
+    g = torch.Generator().manual_seed(seed)
+    r, c = _rand(g, dev), 64
+    x1, wg, bg = r(n, h, w, c).to(dtype), r(c, c, 3, 3, sc=(9 * c) ** -0.5), r(c, sc=0.1)
+    y, e1 = r(n, h // 2, w // 2, c).to(dtype), r(n, h, w, c).abs().to(dtype)
+    g1p = (1 + torch.rand(n, c, generator=g)).to(dev)
+    tail = (*level_weights(r, c, c), r(1, c, 1, 1, sc=c ** -0.5), r(1, sc=0.1))
+    gw, tw = K.gate_weights(wg, bg, dtype), K.tail_weights(*tail, dtype=dtype)
+    cast, px = _cast(dtype, *tail), n * h * w
+
+    def tail_default():
+        return conv2d(default_level(y, e1, g1p.to(dtype), *cast[:8]), *cast[8:])
+
+    return [
+        Case("up1_gate", f"{n}x{h}x{w}x{c}", partial(K.up1_gate, x1, gw),
+             partial(K.up1_gate_ref, x1, wg, bg), partial(default_gate, x1, *_cast(dtype, wg, bg)),
+             px * 18.0 * c * c, _nbytes(dtype, x1, wg, out=x1.numel(), biases=(bg,)) + 8.0 * n * c),
+        Case("up1_tail", f"{n}x{h}x{w}x{c}", partial(K.up1_tail, y, e1, g1p, tw),
+             partial(K.up1_tail_ref, y, e1, g1p, *tail), tail_default,
+             level_flops(px, c, c) + px * 2.0 * c,
+             _nbytes(dtype, y, e1, *tail[::2], out=px, biases=tail[1::2])),
+    ]
+
+
+def dense_cases(n, down1_hw, levels, dtype, dev, seed) -> list:
+    """pool_down1 on an x1 of size down1_hw (64 -> 128 channels), and the
+    dense gate and level kernels at each (output h, w, C, cq) of levels."""
+    from unet_goolenet_tpu_torch.ops.kernels import down1 as D
+    from unet_goolenet_tpu_torch.ops.kernels import up2 as U
+
+    g = torch.Generator().manual_seed(seed)
+    r = _rand(g, dev)
+    h, w = down1_hw
+    x1 = r(n, h, w, 64).to(dtype)
+    dwb = (r(128, 64, 3, 3, sc=(9 * 64) ** -0.5), r(128, sc=0.1),
+           r(128, 128, 3, 3, sc=(9 * 128) ** -0.5), r(128, sc=0.1))
+    px = n * (h // 2) * (w // 2)
+    cases = [Case("pool_down1", f"x1 {n}x{h}x{w}x64",
+                  partial(D.pool_down1, x1, D.down1_weights(*dwb, dtype)),
+                  partial(D.pool_down1_ref, x1, *dwb),
+                  partial(default_down1, x1, *_cast(dtype, *dwb)),
+                  px * 18.0 * (64 * 128 + 128 * 128),
+                  _nbytes(dtype, x1, dwb[0], dwb[2], out=px * 128, biases=dwb[1::2]))]
+    for lh, lw, c, cq in levels:
+        skip, wg, bg = r(n, lh, lw, c).to(dtype), r(c, c, 3, 3, sc=(9 * c) ** -0.5), r(c, sc=0.1)
+        x, e1 = r(n, lh // 2, lw // 2, c).to(dtype), r(n, lh, lw, c).abs().to(dtype)
+        g1p = (1 + torch.rand(n, c, generator=g)).to(dev)
+        lvl = level_weights(r, c, cq)
+        px = n * lh * lw
+        cases += [
+            Case("up_gate_dense", f"{n}x{lh}x{lw}x{c}",
+                 partial(U.up_gate_dense, skip, U.up_gate_weights(wg, bg, dtype)),
+                 partial(U.up_gate_dense_ref, skip, wg, bg),
+                 partial(default_gate, skip, *_cast(dtype, wg, bg)),
+                 px * 18.0 * c * c,
+                 _nbytes(dtype, skip, wg, out=skip.numel(), biases=(bg,)) + 8.0 * n * c),
+            Case("up_level", f"out {n}x{lh}x{lw}x{cq} C={c}",
+                 partial(U.up_level, x, e1, g1p, U.up_level_weights(*lvl, dtype=dtype)),
+                 partial(U.up_level_ref, x, e1, g1p, *lvl),
+                 partial(default_level, x, e1, g1p.to(dtype), *_cast(dtype, *lvl)),
+                 level_flops(px, c, cq),
+                 _nbytes(dtype, x, e1, *lvl[::2], out=px * cq, biases=lvl[1::2])),
+        ]
+    return cases
+
+
+def all_cases(n, dtype, dev, seed, ragged=False) -> list:
+    """Every kernel at the main path's shapes for n images at 224^2, or at
+    a ragged level that no tile divides."""
+    if ragged:
+        return (up1_cases(n, 36, 52, dtype, dev, seed)
+                + dense_cases(n, (40, 56), ((20, 28, 256, 128),), dtype, dev, seed + 1))
+    return (up1_cases(n, 224, 224, dtype, dev, seed)
+            + dense_cases(n, (224, 224), tuple((h, h, c, cq) for h, c, cq in LEVELS), dtype,
+                          dev, seed + 1))
+
+
+def counters() -> dict:
+    """Each kernel's wrapper, whose .launches counts its launches."""
+    from unet_goolenet_tpu_torch.ops.kernels import down1, up1, up2
+
+    return {"up1_gate": up1.up1_gate, "up1_tail": up1.up1_tail,
+            "pool_down1": down1.pool_down1, "up_gate_dense": up2.up_gate_dense,
+            "up_level": up2.up_level}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def random_state_dict(model: torch.nn.Module, seed: int) -> dict:
@@ -202,47 +383,51 @@ def phase_build() -> None:
         ptxas=repr("; ".join(regs)))
 
 
+def dname(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version; returns the bf16 main-shape
     max |error| per kernel."""
     errs = {}
-    for n, h, w in ((4, 224, 224), (2, 36, 52)):
+    for n, ragged in ((4, False), (2, True)):
         for dtype in (torch.float32, torch.bfloat16):
-            calls = kernel_calls(n, h, w, dtype, dev, SEED + h)
-            got = {name: kern() for name, (kern, _) in calls.items()}
+            cases = all_cases(n, dtype, dev, SEED + 2 * ragged, ragged)
+            got = [case.kern() for case in cases]
             torch.cuda.synchronize()
-            ref = {name: plain() for name, (_, plain) in calls.items()}
-            for name in KERNELS:
+            for case, out in zip(cases, got):
                 worst_abs = worst_rel = 0.0
-                for g, r in zip(*(t if isinstance(t, tuple) else (t,)
-                                  for t in (got[name], ref[name]))):
+                pairs = zip(*(t if isinstance(t, tuple) else (t,) for t in (out, case.plain())))
+                for g, r in pairs:
                     g, r = g.float(), r.float()
                     if g.shape != r.shape or not torch.isfinite(g).all():
-                        fail(f"{name} {dtype} {n}x{h}x{w}: shape {tuple(g.shape)} "
+                        fail(f"{case.name} {dtype} {case.label}: shape {tuple(g.shape)} "
                              f"or non-finite values")
                     err = (g - r).abs().max().item()
-                    scale = r.abs().max().item()
                     worst_abs = max(worst_abs, err)
-                    worst_rel = max(worst_rel, err / max(scale, 1e-30))
+                    worst_rel = max(worst_rel, err / max(r.abs().max().item(), 1e-30))
                 ok = worst_rel <= KERNEL_TOL[dtype]
-                say("kernel", name=name, dtype=str(dtype).split(".")[1], shape=f"{n}x{h}x{w}",
+                say("kernel", name=case.name, dtype=dname(dtype), shape=repr(case.label),
                     max_abs_err=f"{worst_abs:.3e}", max_rel_err=f"{worst_rel:.3e}",
                     tol=f"{KERNEL_TOL[dtype]:.0e}", ok=ok)
                 if not ok:
-                    fail(f"{name} disagrees with its plain version")
-                if (n, dtype) == (4, torch.bfloat16):
-                    errs[name] = worst_abs
+                    fail(f"{case.name} disagrees with its plain version")
+                if not ragged and dtype == torch.bfloat16:
+                    errs[case.name] = max(errs.get(case.name, 0.0), worst_abs)
+            del cases, got
     return errs
 
 
 def phase_e2e(dev) -> dict:
+    """The default configuration through infer_e2e, then the all-fused one;
+    returns each kernel's launches on its path."""
     from unet_goolenet_tpu_torch.apps import infer_e2e
     from unet_goolenet_tpu_torch.models import (
         GoogLeNetClassifier, UNetTaskAligWeight, load_reference_state_dict)
-    from unet_goolenet_tpu_torch.ops.kernels import up1 as K
 
     img_dir, (unet_pt, gnet_pt) = write_fixture((UNetTaskAligWeight(1), GoogLeNetClassifier(6)))
-    K.up1_gate.launches = K.up1_tail.launches = 0
+    reset_counts()
     for flags in (["--bf16"], []):
         out = infer_e2e.main(["--image-dir", img_dir, "--unet-checkpoint", unet_pt,
                               "--gnet-checkpoint", gnet_pt, "--out-dir",
@@ -253,32 +438,61 @@ def phase_e2e(dev) -> dict:
         if len(lines) != 8 or not all(0 <= g < 6 for g in grades):
             fail(f"result.txt: expected 8 grades in [0, 6), got {lines}")
         say("e2e", dtype="bf16" if flags else "f32", graded=len(lines), grades=grades)
-    launches = {"up1_gate": K.up1_gate.launches, "up1_tail": K.up1_tail.launches}
-    say("e2e", launches=launches)
+    launches = {k: v for k, v in read_counts().items() if k.startswith("up1_")}
+    say("e2e", config="default", launches=launches)
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
 
     gray = torch.from_numpy(np.stack([infer_e2e.read_gray(os.path.join(img_dir, f"{i}.png"))
                                       for i in (1, 3, 5, 7)]).astype(np.float32))
-    check_kernel_path(dev, load_reference_state_dict(unet_pt, UNetTaskAligWeight(1)),
-                      load_reference_state_dict(gnet_pt, GoogLeNetClassifier(6)), gray)
+    unet = load_reference_state_dict(unet_pt, UNetTaskAligWeight(1))
+    gnet = load_reference_state_dict(gnet_pt, GoogLeNetClassifier(6))
+    check_kernel_path(dev, unet, gnet, gray)
+    fused = phase_fused(dev, unet, gnet, gray)
+    return {**fused, **launches}
+
+
+def phase_fused(dev, unet, gnet, gray) -> dict:
+    """The all-fused configuration: TwoStagePipeline in float32 against the
+    plain composition, then one bf16 batch-16 call of the stage-2 trainer's
+    ROI extractor; every kernel must have launched."""
+    from unet_goolenet_tpu_torch.apps.train_cls import make_roi_extractor
+    from unet_goolenet_tpu_torch.pipeline import preprocess_gray
+
+    reset_counts()
+    check_kernel_path(dev, unet, gnet, gray, **FUSED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    imgs = preprocess_gray(torch.rand((16, 400, 500), generator=g, device=dev) * 255.0)
+    crops, logits = make_roi_extractor(unet, 224, fused=True, dtype=torch.bfloat16,
+                                       device=dev)(imgs)
+    torch.cuda.synchronize()
+    if (crops.shape != (16, 224, 224, 3) or logits.shape != (16, 224, 224, 1)
+            or not (torch.isfinite(crops).all() and torch.isfinite(logits).all())):
+        fail("make_roi_extractor(fused=True): crops/logits of the wrong shape or not finite")
+    launches = read_counts()
+    say("e2e", config="all-fused", extractor="bf16 batch 16",
+        mask_share=f"{(torch.sigmoid(logits[..., 0].float()) > 0.5).float().mean().item():.3f}",
+        launches=launches)
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the all-fused path never launched: {launches}")
     return launches
 
 
-def check_kernel_path(dev, unet, gnet, gray, img_size: int = 224) -> None:
-    """float32: the pipeline (kernel path) against the same graph with the
-    up1 level as plain ops. With random weights every image tends to get the
-    same grade, which would let the grade check pass whatever the kernels
-    return; so the fc bias is first centred on these images' logits. Centred
-    logits sum to 0 over the images in every class, so unless they tie, no
-    one class can win on every image."""
+def check_kernel_path(dev, unet, gnet, gray, img_size: int = 224, **knobs) -> None:
+    """float32: the pipeline (kernel path, with the given fused-level knobs)
+    against the same graph as plain ops (unet_trunk with every knob off, and
+    up1_plain). With random weights every image tends to get the same grade,
+    which would let the grade check pass whatever the kernels return; so the
+    fc bias is first centred on these images' logits. Centred logits sum to 0
+    over the images in every class, so unless they tie, no one class can win
+    on every image."""
     from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline, engine, extract_roi
     from unet_goolenet_tpu_torch.pipeline.two_stage import preprocess_gray
 
-    pipe = TwoStagePipeline(unet, gnet, device=dev, img_size=img_size)
+    pipe = TwoStagePipeline(unet, gnet, device=dev, img_size=img_size, **knobs)
     with torch.no_grad():
         gnet.googlenet.fc.bias -= pipe.infer_from_gray(gray)["cls_logits"].mean(dim=0)
-    pipe = TwoStagePipeline(unet, gnet, device=dev, img_size=img_size)
+    pipe = TwoStagePipeline(unet, gnet, device=dev, img_size=img_size, **knobs)
     k = pipe.infer_from_gray(gray)
     with torch.inference_mode():
         imgs = preprocess_gray(gray.to(dev), out_hw=pipe.hw)
@@ -293,7 +507,8 @@ def check_kernel_path(dev, unet, gnet, gray, img_size: int = 224) -> None:
     seg_err = (k["seg_logits"] - seg).abs().max().item()
     seg_bound = SEG_TOL * seg.abs().max().item()
     grades, plain_grades = k["grades"].tolist(), cls.argmax(dim=-1).tolist()
-    say("e2e", check="f32 kernel path vs plain", grades=grades, plain_grades=plain_grades,
+    say("e2e", check=f"f32 {'all-fused' if knobs else 'default'} kernel path vs plain",
+        grades=grades, plain_grades=plain_grades,
         distinct_grades=len(set(plain_grades)), mask_flips_beyond_1e_3=flips,
         seg_logit_max_abs_err=f"{seg_err:.3e}", seg_logit_bound=f"{seg_bound:.3e}",
         cls_logit_max_abs_err=f"{(k['cls_logits'] - cls).abs().max().item():.3e}",
@@ -304,6 +519,99 @@ def check_kernel_path(dev, unet, gnet, gray, img_size: int = 224) -> None:
         fail("the kernel path and the plain composition disagree")
 
 
+def time_e2e(dev, unet, gnet) -> None:
+    """infer_grades of each of CONFIGS, in turns (forwards, then backwards),
+    each a median of 7 rounds."""
+    from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    order = list(CONFIGS) + list(CONFIGS)[::-1]
+    for dtype in (torch.bfloat16, torch.float32):
+        pipes = {cfg: TwoStagePipeline(unet, gnet, device=dev, dtype=dtype, **knobs)
+                 for cfg, knobs in CONFIGS.items()}
+        for n in (16, 64):
+            gray = torch.rand((n, 400, 500), generator=g, device=dev) * 255.0
+            runs = {cfg: [] for cfg in CONFIGS}
+            for cfg in order:
+                runs[cfg].append(cuda_ms_spread(lambda: pipes[cfg].infer_grades(gray)))
+            for cfg, rs in runs.items():
+                ms = sum(r[0] for r in rs) / len(rs)
+                say("timing", what="infer_grades", config=cfg, dtype=dname(dtype), batch=n,
+                    median_ms=f"{ms:.3f}", run_medians_ms=",".join(f"{r[0]:.3f}" for r in rs),
+                    min_ms=f"{min(r[1] for r in rs):.3f}", max_ms=f"{max(r[2] for r in rs):.3f}",
+                    images_per_s=f"{n * 1000.0 / ms:.1f}", rounds=7, calls_per_round=3)
+
+
+def time_kernels(dev) -> dict:
+    """Each kernel at batch 16 at the main path's shapes, in turns with its
+    plain version (plain, kernel, kernel, plain), then the default
+    configuration's cuDNN path for the same work; returns, per kernel, the
+    bf16 sums over its calls in one infer_grades call."""
+    agg = {name: dict(ms=0.0, plain_ms=0.0, default_path_ms=0.0, bound_ms=0.0, ops=0.0, mem=0.0)
+           for name in KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = all_cases(16, dtype, dev, SEED + 7)
+        for case in cases:
+            p1, k1, k2, p2 = (cuda_ms(f, 10) for f in (case.plain, case.kern, case.kern,
+                                                      case.plain))
+            dm = cuda_ms(case.default, 10)
+            km, pm = (k1 + k2) / 2, (p1 + p2) / 2
+            bound, by = case.bound(dtype)
+            say("timing", what=case.name, shape=repr(case.label), dtype=dname(dtype), batch=16,
+                kernel_ms=f"{km:.3f}", plain_ms=f"{pm:.3f}", default_path_ms=f"{dm:.3f}",
+                bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / km:.3f}",
+                kernel_runs=f"{k1:.3f},{k2:.3f}", plain_runs=f"{p1:.3f},{p2:.3f}")
+            if dtype == torch.bfloat16:
+                a = agg[case.name]
+                a["ms"] += km
+                a["plain_ms"] += pm
+                a["default_path_ms"] += dm
+                a["bound_ms"] += bound
+                a["ops"] += case.flops / PEAK_FLOPS[dtype]
+                a["mem"] += case.nbytes / PEAK_BYTES
+        del cases
+    return agg
+
+
+# conv_kernel's MODE (csrc/dense_conv.cuh) -> the level launch it is
+LEVEL_STAGES = {"3": "deconv", "2": "d2_gate", "0": "pair_block1", "4": "block1_head"}
+
+
+def level_stages(dev, calls: int = 10) -> None:
+    """The level kernel's device time by launch, bf16 batch 16, at up1 (with
+    the head, as up1_tail) and each dense level (up_level), from a profiler
+    trace of `calls` calls: what each of its launches costs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    levels = tuple((h, h, c, cq) for h, c, cq in LEVELS)
+    cases = (up1_cases(16, 224, 224, torch.bfloat16, dev, SEED + 7)
+             + dense_cases(16, (224, 224), levels, torch.bfloat16, dev, SEED + 7))
+    for case in cases:
+        if case.name not in ("up1_tail", "up_level"):
+            continue
+        case.kern()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                case.kern()
+            torch.cuda.synchronize()
+        ms, launches = {}, 0
+        for e in prof.key_averages():
+            if device_us(e) <= 0 or not str(e.device_type).endswith("CUDA"):
+                continue
+            m = re.search(r"conv_kernel<[^<>]*?(\d+)>", e.key)
+            stage = LEVEL_STAGES.get(m.group(1), "other") if m else "other"
+            ms[stage] = ms.get(stage, 0.0) + device_us(e) / 1e3 / calls
+            launches += e.count
+        if not ms:
+            say("timing", what=f"{case.name}_stages", shape=repr(case.label),
+                device_time="not measured (the trace holds no device time)")
+            continue
+        say("timing", what=f"{case.name}_stages", shape=repr(case.label), dtype="bfloat16",
+            batch=16, launches_per_call=launches / calls, sum_ms=f"{sum(ms.values()):.4f}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()})
+
+
 def phase_timing(dev, errs, launches) -> list:
     from unet_goolenet_tpu_torch.models import GoogLeNetClassifier, UNetTaskAligWeight
     from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline, engine, extract_roi
@@ -312,29 +620,12 @@ def phase_timing(dev, errs, launches) -> list:
     unet, gnet = UNetTaskAligWeight(1), GoogLeNetClassifier(6)
     unet.load_state_dict(random_state_dict(unet, SEED + 1))
     gnet.load_state_dict(random_state_dict(gnet, SEED + 2))
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    for dtype in (torch.bfloat16, torch.float32):
-        pipe = TwoStagePipeline(unet, gnet, device=dev, dtype=dtype)
-        for n in (16, 64):
-            gray = torch.rand((n, 400, 500), generator=g, device=dev) * 255.0
-            ms, lo, hi = cuda_ms_spread(lambda: pipe.infer_grades(gray))
-            say("timing", what="infer_grades", dtype=str(dtype).split(".")[1], batch=n,
-                median_ms=f"{ms:.3f}", min_ms=f"{lo:.3f}", max_ms=f"{hi:.3f}",
-                images_per_s=f"{n * 1000.0 / ms:.1f}", rounds=7, calls_per_round=3)
-
-    kernel_ms = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, (kern, plain) in kernel_calls(16, 224, 224, dtype, dev, SEED + 7).items():
-            # plain, kernel, kernel, plain
-            p1, k1, k2, p2 = (cuda_ms(f, 10) for f in (plain, kern, kern, plain))
-            km, pm = (k1 + k2) / 2, (p1 + p2) / 2
-            say("timing", what=name, dtype=str(dtype).split(".")[1], batch=16,
-                kernel_ms=f"{km:.3f}", plain_ms=f"{pm:.3f}", kernel_runs=f"{k1:.3f},{k2:.3f}",
-                plain_runs=f"{p1:.3f},{p2:.3f}")
-            if dtype == torch.bfloat16:
-                kernel_ms[name] = (km, pm)
+    time_e2e(dev, unet, gnet)
+    agg = time_kernels(dev)
+    level_stages(dev)
 
     # per-layer split of one bf16 batch-64 call (events between the stages)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
     pipe = TwoStagePipeline(unet, gnet, device=dev, dtype=torch.bfloat16)
     gray = torch.rand((64, 400, 500), generator=g, device=dev) * 255.0
     P = pipe.unet_params
@@ -358,19 +649,23 @@ def phase_timing(dev, errs, launches) -> list:
     with torch.inference_mode():
         run()
         run()
-        for name, (kern, _) in kernel_calls(64, 224, 224, torch.bfloat16, dev,
-                                            SEED + 9).items():
-            stages[name] = cuda_ms(kern, 3)
+        for case in up1_cases(64, 224, 224, torch.bfloat16, dev, SEED + 9):
+            stages[case.name] = cuda_ms(case.kern, 3)
     stages["unet_trunk_rest"] = stages["unet"] - stages["up1_gate"] - stages["up1_tail"]
     say("timing", what="layers_bf16_b64_ms",
         **{k: f"{v:.3f}" for k, v in stages.items()})
     for n in (16, 64):
         batch = gray[:n].contiguous()
         profile_call(lambda: pipe.infer_grades(batch), f"infer_grades_bf16_b{n}")
+    fused = TwoStagePipeline(unet, gnet, device=dev, dtype=torch.bfloat16, **FUSED)
+    profile_call(lambda: fused.infer_grades(gray), "infer_grades_fused_bf16_b64")
 
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errs[name],
-             "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1]}
+             "ms": agg[name]["ms"], "plain_ms": agg[name]["plain_ms"],
+             "bound_ms": agg[name]["bound_ms"],
+             "bound_by": "operations" if agg[name]["ops"] >= agg[name]["mem"] else "bytes",
+             "library_ms": None, "default_path_ms": agg[name]["default_path_ms"]}
             for name, (src, rep) in KERNELS.items()]
 
 
@@ -406,11 +701,10 @@ def profile_call(fn, what: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
     events = prof.key_averages()
     # device-side events only (kernels, copies), so nothing is counted twice
-    kernels = sorted((e for e in events if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
-                     key=dev_us, reverse=True)
+    kernels = sorted((e for e in events if str(e.device_type).endswith("CUDA") and device_us(e) > 0),
+                     key=device_us, reverse=True)
     # runtime calls that can hold the host until the device catches up; the
     # last cudaDeviceSynchronize is this function's own
     waits = {e.key: e.count for e in events
@@ -418,13 +712,13 @@ def profile_call(fn, what: str) -> None:
     if not kernels:
         say("profile", what=what, device_time="not measured (the trace holds no device time)")
         return
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
     say("profile", what=what, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
         idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.3f}",
         launches=sum(e.count for e in kernels), host_waits=repr(waits))
     for e in kernels[:12]:
         say("profile", what=what, kernel=repr(e.key[:90]), calls=e.count,
-            ms=f"{dev_us(e) / 1e3:.3f}")
+            ms=f"{device_us(e) / 1e3:.3f}")
 
 
 def main() -> None:

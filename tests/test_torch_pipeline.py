@@ -52,7 +52,7 @@ def pipes():
     jpipe = JPipeline(JUNet(n_classes=1), jax.tree_util.tree_map(jnp.asarray, uv),
                       JGNet(num_classes=6), jax.tree_util.tree_map(jnp.asarray, gv),
                       img_size=S, fused_up1=True, dense_fused_up1=True, dense_batch_min=1)
-    return gray, TwoStagePipeline(unet, gnet, img_size=S), jpipe
+    return gray, TwoStagePipeline(unet, gnet, img_size=S, device="cpu"), jpipe
 
 
 def test_infer_from_gray_matches_jax(pipes):
@@ -87,9 +87,9 @@ def test_pipeline_runs_without_tf32(pipes, monkeypatch):
     seen = []
     forward = engine.unet_forward
 
-    def spy(P, x):
+    def spy(P, x, **knobs):
         seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
-        return forward(P, x)
+        return forward(P, x, **knobs)
 
     monkeypatch.setattr(engine, "unet_forward", spy)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
@@ -124,7 +124,7 @@ def test_infer_e2e_cli_writes_result(tmp_path):
                           "--out-dir", str(tmp_path / "out"), "--img-size", str(S),
                           "--batch-size", "2"])
     lines = open(out).read().splitlines()
-    pipe = TwoStagePipeline(*models, img_size=S)
+    pipe = TwoStagePipeline(*models, img_size=S, device="cpu")
     expected = []
     for stem in ("2", "10", "33"):
         gray = infer_e2e.read_gray(str(img_dir / f"{stem}.png")).astype(np.float32)
@@ -138,3 +138,13 @@ def test_infer_e2e_cuda_without_device_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer_e2e.main(["--image-dir", str(tmp_path), "--unet-checkpoint", "u.pt",
                         "--gnet-checkpoint", "g.pt"])
+
+
+def test_pipeline_defaults_to_cuda():
+    """TwoStagePipeline runs on the card unless told otherwise: on a host
+    without one, the default device raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    unet, gnet = port_models(*jax_variables(S, seed=11))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TwoStagePipeline(unet, gnet, img_size=S)

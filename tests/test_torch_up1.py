@@ -86,8 +86,8 @@ def jax_tail(PU, P, d):
 
 
 # (c, h, w): 8-channel cases as in tests/test_pallas.py; 64 channels (the
-# model's width) at 16x16; and 20x36, which neither the tail's 8x16 nor the
-# gate's 16x16 tile divides
+# model's width) at 16x16; and 20x36, which the kernels' 8x16 tile does not
+# divide
 GATE_CASES = [(8, 16, 12), (64, 16, 16), (64, 20, 36)]
 TAIL_CASES = [(8, 32, 16, 1), (8, 16, 8, 3), (64, 16, 16, 1), (64, 20, 36, 3)]
 

@@ -1,4 +1,6 @@
-// Shared pieces of the up1 kernels (up1_gate.cu, up1_tail.cu).
+// The convolution machinery under dense_conv.cuh's conv_kernel, which runs
+// the gate, decoder-level and encoder kernels (gate.cu, up_level.cu,
+// down1.cu).
 //
 // Layout: activations are dense NHWC with C = 64 channels, element type T =
 // float or __nv_bfloat16. Inside a block every activation tile lives in
@@ -16,9 +18,11 @@
 //   * T = bf16: tensor cores, mma.sync.m16n8k16 bf16 with float32
 //     accumulators. A warp owns 16-pixel M tiles (pixels 16m .. 16m+15 of the
 //     region) times all 64 output channels (8 N tiles of 8); A fragments are
-//     read straight from the bf16 tile, each row at its own pixel offset.
-//     Weights ([tap][co][ci] in global memory) are staged for all taps at once
-//     with 16-byte copies into rows padded to 72.
+//     read from the bf16 tile with ldmatrix, each row at its own pixel
+//     offset. Weights ([tap][co][ci] in global memory) are staged for all
+//     taps at once with 16-byte cp.async copies into rows padded to 72.
+// Every shared-memory row that ldmatrix reads starts 16-byte aligned
+// (pitches of 144 bytes in bf16).
 // visit(f) calls f(p, co, v0, v1) for every output pixel p < R and channel
 // pair (co, co+1) the thread owns.
 #pragma once
@@ -28,7 +32,7 @@
 #include <stdint.h>
 #include <string.h>
 
-namespace up1 {
+namespace common {
 
 constexpr int C = 64;
 constexpr int WARPS = 8;
@@ -109,11 +113,12 @@ template <int R> struct Conv<float, R> {
     for (int j = 0; j < PX; ++j) acc[j][0] = acc[j][1] = 0.f;
   }
 
-  // acc += conv3x3 over the region (out_cols wide) reading src at
-  // (r + dr + ky, c + dc + kx); wg is [9][cin_total][64], ci_off selects a
-  // 64-channel slab. Synchronises the block around each weight staging.
-  __device__ void run(const float* src, int src_cols, int out_cols, int dr, int dc,
-                      const float* wg, int cin_total, int ci_off, float* ws) {
+  // acc += convKxK over the region (out_cols wide) reading src at
+  // (r + ky, c + kx); wg is [K*K][cin_total][64], ci_off selects a 64-channel
+  // slab. Synchronises the block around each weight staging.
+  template <int K = 3>
+  __device__ void run(const float* src, int src_cols, int out_cols, const float* wg,
+                      int cin_total, int ci_off, float* ws) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     int off[PX];
 #pragma unroll
@@ -121,13 +126,13 @@ template <int R> struct Conv<float, R> {
       const int p = warp + WARPS * j;
       off[j] = p < R ? ((p / out_cols) * src_cols + p % out_cols) * PITCH : 0;
     }
-    for (int t = 0; t < 9; ++t) {
+    for (int t = 0; t < K * K; ++t) {
       __syncthreads();
       const float* wt = wg + ((size_t)t * cin_total + ci_off) * C;
       for (int i = threadIdx.x * 4; i < C * C; i += THREADS * 4)
         *reinterpret_cast<float4*>(ws + i) = *reinterpret_cast<const float4*>(wt + i);
       __syncthreads();
-      const float* s = src + ((dr + t / 3) * src_cols + dc + t % 3) * PITCH;
+      const float* s = src + ((t / K) * src_cols + t % K) * PITCH;
       const float* w = ws + 2 * lane;
 #pragma unroll 2
       for (int ci = 0; ci < C; ci += 4) {
@@ -169,20 +174,41 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8, and register j holds matrix j in mma fragment order
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+// 16-byte global -> shared copy that does not pass through registers; with
+// valid = false it writes 16 zero bytes and reads nothing. Complete with
+// cp_async_wait_all() and a barrier before the data is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Stage ntaps 64 x 64 weight blocks (global [tap][co][ci_total], 64-channel
-// slab at ci_off) into ws as [tap][co][WPITCH], 16 bytes per copy.
+// slab at ci_off) into ws as [tap][co][WPITCH], 16 bytes per copy, all in
+// flight at once; the caller's barrier publishes them.
 __device__ __forceinline__ void stage_taps(__nv_bfloat16* ws, const __nv_bfloat16* wg, int ntaps,
                                            int cin_total, int ci_off) {
   constexpr int WPITCH = Traits<__nv_bfloat16>::WPITCH;
   for (int i = threadIdx.x; i < ntaps * C * (C / 8); i += THREADS) {
     const int row = i / (C / 8), ch = i % (C / 8);   // row = tap * C + co
-    *reinterpret_cast<uint4*>(ws + row * WPITCH + ch * 8) =
-        *reinterpret_cast<const uint4*>(wg + (size_t)row * cin_total + ci_off + ch * 8);
+    cp_async16(ws + row * WPITCH + ch * 8, wg + (size_t)row * cin_total + ci_off + ch * 8);
   }
+  cp_async_wait_all();
 }
 
 template <int R> struct Conv<__nv_bfloat16, R> {
@@ -200,58 +226,53 @@ template <int R> struct Conv<__nv_bfloat16, R> {
       for (int n = 0; n < 8; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
   }
 
-  // off[i][h]: shared-memory offset of the thread's A row h (pixel
-  // 16m + g + 8h of the warp's i-th M tile) as f(p); 0 past the region
-  template <class F> __device__ void rows(int (&off)[MT][2], F&& f) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (warp + WARPS * i) * 16 + (lane >> 2) + 8 * h;
-        off[i][h] = p < R ? f(p) : 0;
-      }
-  }
-
   // acc += A x W for one staged 64 x 64 tap wt ([co][WPITCH]); A's rows are
-  // the 64 channels at s + off
-  __device__ void mma_tap(const bf16* s, const int (&off)[MT][2], const bf16* wt) {
+  // the 64 channels at s + off. Fragments come from ldmatrix: A's matrices
+  // are (rows 0-7 | 8-15) x (k 0-7 | 8-15), lanes 16-31 address the upper k
+  // half; B's are two 8-column N tiles x the two k halves.
+  __device__ void mma_tap(const bf16* s, const int (&off)[MT], const bf16* wt) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3;
-    s += 2 * t;
+    const bf16* a = s + 8 * (lane >> 4);
+    const bf16* b = wt + ((lane >> 4) * 8 + (lane & 7)) * WPITCH + 8 * ((lane >> 3) & 1);
 #pragma unroll
     for (int kc = 0; kc < C; kc += 16) {
-      uint32_t b[8][2];
+      uint32_t bf[8][2];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* wr = wt + (n * 8 + g) * WPITCH + kc + 2 * t;
-        b[n][0] = ld32(wr);
-        b[n][1] = ld32(wr + 8);
-      }
+      for (int q = 0; q < 4; ++q)
+        ldsm_x4(bf[2 * q][0], bf[2 * q][1], bf[2 * q + 1][0], bf[2 * q + 1][1],
+                b + q * 16 * WPITCH + kc);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        if (warp + WARPS * i >= MTILES) continue;
-        const bf16* s0 = s + off[i][0] + kc;
-        const bf16* s1 = s + off[i][1] + kc;
-        const uint32_t a0 = ld32(s0), a1 = ld32(s1), a2 = ld32(s0 + 8), a3 = ld32(s1 + 8);
+        if (warp + WARPS * i >= MTILES) continue;   // warp-uniform
+        uint32_t a0, a1, a2, a3;
+        ldsm_x4(a0, a1, a2, a3, a + off[i] + kc);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) mma_bf16(acc[i][n], a0, a1, a2, a3, b[n][0], b[n][1]);
+        for (int n = 0; n < 8; ++n) mma_bf16(acc[i][n], a0, a1, a2, a3, bf[n][0], bf[n][1]);
       }
     }
   }
 
-  // 3x3 conv as in Conv<float>::run; wg is [9][64][cin_total] and all nine
-  // taps are staged at once (ws holds Traits<bf16>::WS elements)
-  __device__ void run(const bf16* src, int src_cols, int out_cols, int dr, int dc,
-                      const bf16* wg, int cin_total, int ci_off, bf16* ws) {
-    int off[MT][2];
-    rows(off, [&](int p) { return ((p / out_cols) * src_cols + p % out_cols) * PITCH; });
+  // KxK conv as in Conv<float>::run; wg is [K*K][64][cin_total] and all
+  // taps are staged at once (ws holds Traits<bf16>::WS elements, 9 taps)
+  template <int K = 3>
+  __device__ void run(const bf16* src, int src_cols, int out_cols, const bf16* wg,
+                      int cin_total, int ci_off, bf16* ws) {
+    static_assert(K * K <= 9, "the weight staging holds nine taps");
+    // off[i]: shared-memory offset of the A row this lane addresses for
+    // ldmatrix (pixel 16m + lane % 16 of the warp's i-th M tile); 0 past
+    // the region
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int off[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int p = (warp + WARPS * i) * 16 + (lane & 15);
+      off[i] = p < R ? ((p / out_cols) * src_cols + p % out_cols) * PITCH : 0;
+    }
     __syncthreads();
-    stage_taps(ws, wg, 9, cin_total, ci_off);
+    stage_taps(ws, wg, K * K, cin_total, ci_off);
     __syncthreads();
-    for (int tap = 0; tap < 9; ++tap)
-      mma_tap(src + ((dr + tap / 3) * src_cols + dc + tap % 3) * PITCH, off,
-              ws + tap * C * WPITCH);
+    for (int tap = 0; tap < K * K; ++tap)
+      mma_tap(src + ((tap / K) * src_cols + tap % K) * PITCH, off, ws + tap * C * WPITCH);
   }
 
   template <class F> __device__ void visit(F&& f) const {
@@ -272,4 +293,4 @@ template <int R> struct Conv<__nv_bfloat16, R> {
   }
 };
 
-}  // namespace up1
+}  // namespace common

@@ -10,8 +10,13 @@ stay in the compute dtype; convs and matmuls accumulate in float32.
 JAX package's accelerator path runs them (`unet_forward_packed_tail_fused`,
 engine.py:309-341), in dense layout: the gate-pass kernel (`up1_gate`), the
 tiny 1x1 squeeze-excite gate in plain torch, then the tail kernel
-(`up1_tail`). `up1_plain` is that level as plain ops, the composition the
-kernels are held against; only tests and chip_smoke.py call it.
+(`up1_tail`). Its knobs `fused_down1`, `fused_up34` and `fused_up2` follow
+the JAX engine's `unet_forward_packed` (engine.py:394-474) on the one dense
+path: pool + down1 on `pool_down1`, and up4/up3 and up2 each on the dense
+gate kernel, the squeeze-excite gate and the level kernel (`_up_fused`).
+`unet_trunk` with every knob off plus `up1_plain` is the whole UNet as plain
+ops, the composition the kernels are held against; only tests and
+chip_smoke.py call `up1_plain`.
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ from unet_goolenet_tpu_torch.models.googlenet import (
 from unet_goolenet_tpu_torch.models.unet import UNetTaskAligWeight
 from unet_goolenet_tpu_torch.nn.blocks import ConvBatchNorm
 from unet_goolenet_tpu_torch.ops.conv import conv2d, conv_transpose2x2, fold_batchnorm
+from unet_goolenet_tpu_torch.ops.kernels.down1 import down1_weights, pool_down1
 from unet_goolenet_tpu_torch.ops.kernels.up1 import (
     gate_weights, tail_weights, up1_gate, up1_tail)
+from unet_goolenet_tpu_torch.ops.kernels.up2 import (
+    up_gate_dense, up_gate_weights, up_level, up_level_weights)
 from unet_goolenet_tpu_torch.ops.pool import max_pool2d
 from unet_goolenet_tpu_torch.nn.transformer import attend
 
@@ -88,15 +96,18 @@ def _fold_layer(lyr, dtype) -> Params:
 
 
 @torch.no_grad()
-def fold_unet(model: UNetTaskAligWeight, dtype=torch.float32) -> Params:
-    """Folded, cast weights of a UNetTaskAligWeight (eval semantics). The up1
-    level and the head are also folded in float32 and laid out once for the
-    kernels (`up1_kernels`), which round weights to the activation dtype and
-    keep biases in float32."""
+def fold_unet(model: UNetTaskAligWeight, dtype=torch.float32, *, fused_up2: bool = False,
+              fused_up34: bool = False, fused_down1: bool = False) -> Params:
+    """Folded, cast weights of a UNetTaskAligWeight (eval semantics). The
+    levels that run on kernels are also folded in float32 and laid out once
+    for them: up1 always (`up1_kernels`), and the levels whose knob is on
+    (`up_kernels`, `down1_kernels`), the knobs of `unet_forward`. The
+    kernels round weights to the activation dtype and keep biases in
+    float32."""
     t = model.task2
     u = _fold_up(model.up1, torch.float32)
     outc = _cast((model.outc.weight, model.outc.bias), torch.float32)
-    return {
+    P = {
         "dtype": dtype,
         "inc": _fold_cbn(model.inc, dtype),
         "down": [[_fold_cbn(b, dtype) for b in getattr(model, f"down{i}").nConvs]
@@ -116,7 +127,27 @@ def fold_unet(model: UNetTaskAligWeight, dtype=torch.float32) -> Params:
         "up1_kernels": (gate_weights(*u["e1"], dtype),
                         tail_weights(*u["up"], *u["d2"], *u["pair"], *u["blk1"], *outc,
                                      dtype)),
+        "up_kernels": {},
     }
+    for name, on in (("up4", fused_up34), ("up3", fused_up34), ("up2", fused_up2)):
+        if on:
+            f = _fold_up(getattr(model, name), torch.float32)
+            P["up_kernels"][name] = (up_gate_weights(*f["e1"], dtype),
+                                     up_level_weights(*f["up"], *f["d2"], *f["pair"],
+                                                      *f["blk1"], dtype))
+    if fused_down1:
+        d1 = [_fold_cbn(b, torch.float32) for b in model.down1.nConvs]
+        P["down1_kernels"] = down1_weights(*d1[0], *d1[1], dtype)
+    return P
+
+
+def _laid_out(P: Params, key: str, knob: str):
+    """P[key] (a level's kernel weights), or a ValueError naming the knob
+    that fold_unet needed."""
+    if key not in P:
+        raise ValueError(f"{knob}=True needs the kernel weights that "
+                         f"fold_unet(..., {knob}=True) lays out")
+    return P[key]
 
 
 # ------------------------------------------------------------------ UNet
@@ -143,6 +174,17 @@ def _up_alig(x: torch.Tensor, skip: torch.Tensor, p: Params) -> torch.Tensor:
     up = conv_transpose2x2(x, *p["up"])
     gated = _coord_att3(skip, up, p)
     return _cbn(_cbn(torch.cat([up, gated], dim=-1), p["pair"]), p["blk1"])
+
+
+def _up_fused(y: torch.Tensor, skip: torch.Tensor, P: Params, name: str) -> torch.Tensor:
+    """A decoder level (up2-up4) through the dense gate kernel, the 1x1
+    squeeze-excite gate in plain torch, then the level kernel (plain
+    versions on the CPU); counterpart of the JAX engine's `_up_fused`."""
+    gw, lw = _laid_out(P["up_kernels"], name,
+                       "fused_up2" if name == "up2" else "fused_up34")
+    e1, avg, mx = up_gate_dense(skip.contiguous(), gw)
+    gate = _se_gate(avg.to(skip.dtype), mx.to(skip.dtype), P[name])
+    return up_level(y.contiguous(), e1, 1.0 + gate, lw)
 
 
 def _up1_kernels(y: torch.Tensor, x1: torch.Tensor, P: Params) -> torch.Tensor:
@@ -198,27 +240,41 @@ def _transformer(x: torch.Tensor, p: Params, heads: int = 8) -> torch.Tensor:
     return ms.reshape(n, h, w, c)
 
 
-def unet_trunk(P: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def unet_trunk(P: Params, x: torch.Tensor, *, fused_up2: bool = False,
+               fused_up34: bool = False, fused_down1: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Everything before the up1 level: (N, H, W, 3) -> (up2's output
-    (N, H/2, W/2, 64), the inc features x1 (N, H, W, 64))."""
+    (N, H/2, W/2, 64), the inc features x1 (N, H, W, 64)). With every knob
+    off it is all plain ops; fused_down1 runs pool + down1 on its kernel,
+    fused_up34 up4 and up3 on the gate and level kernels, fused_up2 up2."""
     x1 = _cbn(x, P["inc"])
-    feats = [x1]
-    h = x1
-    for blocks in P["down"]:
+    if fused_down1:
+        h = pool_down1(x1.contiguous(), _laid_out(P, "down1_kernels", "fused_down1"))
+    else:
+        h = max_pool2d(x1, 2)
+        for wb in P["down"][0]:
+            h = _cbn(h, wb)
+    feats = [x1, h]
+    for blocks in P["down"][1:]:
         h = max_pool2d(h, 2)
         for wb in blocks:
             h = _cbn(h, wb)
         feats.append(h)
     y = _transformer(feats[4], P["task2"])
-    y = _up_alig(y, feats[3], P["up4"])
-    y = _up_alig(y, feats[2], P["up3"])
-    return _up_alig(y, feats[1], P["up2"]), x1
+    for name, skip, fused in (("up4", feats[3], fused_up34), ("up3", feats[2], fused_up34),
+                              ("up2", feats[1], fused_up2)):
+        y = _up_fused(y, skip, P, name) if fused else _up_alig(y, skip, P[name])
+    return y, x1
 
 
-def unet_forward(P: Params, x: torch.Tensor) -> torch.Tensor:
+def unet_forward(P: Params, x: torch.Tensor, *, fused_up2: bool = False,
+                 fused_up34: bool = False, fused_down1: bool = False) -> torch.Tensor:
     """(N, H, W, 3) in P's dtype -> (N, H, W, n_classes) logits; up1 and the
-    head run on the kernels."""
-    y, x1 = unet_trunk(P, x)
+    head run on the kernels, and the knobs move more levels onto kernels
+    (`unet_trunk`), as the JAX engine's `unet_forward_packed` does. A knob
+    that is on needs P from fold_unet with the same knob on."""
+    y, x1 = unet_trunk(P, x, fused_up2=fused_up2, fused_up34=fused_up34,
+                       fused_down1=fused_down1)
     return _up1_kernels(y.contiguous(), x1.contiguous(), P)
 
 

@@ -26,7 +26,7 @@ from unet_goolenet_tpu_torch.ops.wavelet import wavelet_enhance
 from unet_goolenet_tpu_torch.pipeline import engine
 
 
-def _inference(fn):
+def inference(fn):
     """Run fn in inference mode with TF32 off, and restore the TF32 flags
     after: PyTorch lets cuDNN convs use TF32 for float32 by default."""
     @functools.wraps(fn)
@@ -59,6 +59,26 @@ def extract_roi(imgs: torch.Tensor, masks: torch.Tensor, *, padding: int = 30,
     return crops.flip(-1), boxes
 
 
+def check_device(device) -> torch.device:
+    """torch.device(device); raises for a CUDA device when there is none,
+    so that nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
+
+def check_fused(img_size: int, **knobs: bool) -> Dict[str, bool]:
+    """The fused-level knobs as keyword arguments of engine.unet_forward;
+    raises for an odd image size with a knob on (the kernels take even
+    level sizes only)."""
+    on = [k for k, v in knobs.items() if v]
+    if on and img_size % 2:
+        raise ValueError(f"{', '.join(on)} need an even img_size, got {img_size}")
+    return {k: bool(v) for k, v in knobs.items()}
+
+
 class TwoStagePipeline:
     """Both models, BN-folded once, behind the JAX pipeline's entry points.
 
@@ -67,24 +87,36 @@ class TwoStagePipeline:
         out = pipe.infer_from_gray(gray_batch)        # dict of every stage
 
     The UNet's up1 level and head run on the CUDA kernels
-    (engine.unet_forward). Every call runs with TF32 off, so float32 work
-    (preprocessing, and both models at dtype=float32) is float32 on the card.
+    (engine.unet_forward). `fused_up2`, `fused_up34` and `fused_down1` (the
+    JAX pipeline's names, off by default as there) move the up2 level, the
+    up3 and up4 levels, and pool + down1 onto their kernels too. A knob that
+    is on runs its kernel for every call on the card, or the call raises; it
+    never takes a plain path, and an odd `img_size` with a knob on is refused
+    here. Every call runs with TF32 off, so float32 work (preprocessing, and
+    both models at dtype=float32) is float32 on the card.
+
+    The pipeline runs on the card unless `device` says otherwise; without a
+    CUDA device the default raises.
     """
 
     def __init__(self, unet, gnet, *, img_size: int = 224, padding: int = 30,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
-        self.device = torch.device(device)
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 fused_up2: bool = False, fused_up34: bool = False,
+                 fused_down1: bool = False):
+        self.device = check_device(device)
+        self.fused = check_fused(img_size, fused_up2=fused_up2, fused_up34=fused_up34,
+                                 fused_down1=fused_down1)
         self.dtype = dtype
         self.hw = (img_size, img_size)
         self.padding = padding
-        self.unet_params = engine.fold_unet(unet.to(self.device).eval(), dtype)
+        self.unet_params = engine.fold_unet(unet.to(self.device).eval(), dtype, **self.fused)
         self.gnet_params = engine.fold_gnet(gnet.to(self.device).eval(), dtype)
 
     def _input(self, t) -> torch.Tensor:
         return torch.as_tensor(t).to(self.device)
 
     def _seg(self, imgs: torch.Tensor):
-        logits = engine.unet_forward(self.unet_params, imgs)
+        logits = engine.unet_forward(self.unet_params, imgs, **self.fused)
         masks = (torch.sigmoid(logits[..., 0]) > 0.5).float()
         return logits, masks
 
@@ -95,7 +127,7 @@ class TwoStagePipeline:
         return {"grades": cls_logits.argmax(dim=-1), "cls_logits": cls_logits,
                 "masks": masks, "boxes": boxes, "seg_logits": logits}
 
-    @_inference
+    @inference
     def infer_from_gray(self, gray) -> Dict[str, torch.Tensor]:
         """Full pipeline from raw grayscale (N, H, W) in [0, 255]."""
         imgs = preprocess_gray(self._input(gray), out_hw=self.hw).to(self.dtype)
@@ -105,12 +137,12 @@ class TwoStagePipeline:
         """Raw grayscale (N, H, W) -> (N,) grades."""
         return self.infer_from_gray(gray)["grades"]
 
-    @_inference
+    @inference
     def infer_from_rgb(self, imgs) -> Dict[str, torch.Tensor]:
         """Pipeline from preprocessed (N, S, S, 3) images in [0, 1]."""
         return self._from_imgs(self._input(imgs).to(self.dtype))
 
-    @_inference
+    @inference
     def infer_masks(self, imgs) -> torch.Tensor:
         """Stage 1 only: (N, S, S, 3) images -> (N, S, S) masks."""
         return self._seg(self._input(imgs).to(self.dtype))[1]
