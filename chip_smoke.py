@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -35,6 +36,33 @@ Phases, one line each (the first failure exits non-zero):
      call at batch 16 and 64, and one profiler trace of each, and of one
      all-fused bf16 batch-64 call (device busy vs wall, host syncs, top
      kernels).
+  7. training kernels: kernels 6-9 (fused conv3x3 forward, its dx through
+     the same kernel and its split-K dw; the conv-stack pair; the 2x2
+     transposed conv, its dx and dW/db; the 2x2 max pool and its backward)
+     against their plain versions in float32 (TF32 off) and bfloat16, at
+     every conv, pair, deconv and pool shape of the trainer at batch 4 and
+     224^2, at a ragged 20x28 level and at cin = 3 on a ragged 36x52 image.
+  8. training, the main path of this slice: 12 seeded PNGs (8 train, 4 val,
+     400x500 with a lesion mask) through `apps.train_seg.main --kernels`
+     for two epochs in bf16; every new kernel's counter, set to 0 just
+     before, must be > 0, the losses finite and the best checkpoint must
+     reload. Then one full-width 224^2 batch-4 train step and eval step in
+     float32 with the kernels and on the stock path, both measured against
+     the stock path in float64 from the same weights and batch: pass 0's
+     loss and gradients, the batch statistics and parameters after the
+     step, the eval loss. The kernel path may be no further from float64
+     than three times the stock path plus a floor (TRAIN_TOL), over all
+     leaves and leaf by leaf; the leaves whose gradient is zero
+     analytically are left out of the gradients and the parameters.
+  9. training timing: ms per train step and per eval step, kernels and
+     stock, bf16 and float32, in turns; one profiled bf16 step each way
+     (device busy, idle share, launches); each training kernel at the
+     trainer's shapes against its plain version and the cuDNN call for the
+     same work (F.conv2d, conv2d_input, conv2d_weight, conv_transpose2d and
+     its gradients, max_pool2d and its backward), with its bound: device
+     time, all of it from one profiler trace (the steps are host-bound, so
+     CUDA events around back-to-back calls measure the host), and the wall
+     time beside.
 Then a JSON line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Weights and images are random, made from seeds; nothing is downloaded.
@@ -83,6 +111,53 @@ FUSED = dict(fused_up2=True, fused_up34=True, fused_down1=True)
 CONFIGS = {"default": {}, "fused": FUSED, "up2_down1": dict(fused_up2=True, fused_down1=True)}
 # the decoder levels up2, up3, up4 at 224^2: (output size, C, cq)
 LEVELS = ((112, 128, 64), (56, 256, 128), (28, 512, 256))
+# kernels 6-9 of the training path: wrapper -> (source, the TPU kernel it replaces)
+TRAIN_KERNELS = {
+    "fused_conv3x3": ("unet_goolenet_tpu_torch/csrc/conv.cu",
+                      "unet_goolenet_tpu/ops/pallas/conv.py:177"),
+    "conv3x3_dw": ("unet_goolenet_tpu_torch/csrc/conv_dw.cuh",
+                   "unet_goolenet_tpu/ops/pallas/conv.py:132"),
+    "fused_convstack2": ("unet_goolenet_tpu_torch/csrc/conv.cu",
+                         "unet_goolenet_tpu/ops/pallas/conv.py:277"),
+    "deconv2x2": ("unet_goolenet_tpu_torch/csrc/deconv.cu",
+                  "unet_goolenet_tpu/ops/pallas/conv.py:334"),
+    "deconv2x2_dx": ("unet_goolenet_tpu_torch/csrc/deconv.cu",
+                     "unet_goolenet_tpu/ops/pallas/conv.py:393"),
+    "deconv2x2_dwdb": ("unet_goolenet_tpu_torch/csrc/conv_dw.cuh",
+                       "unet_goolenet_tpu/ops/pallas/conv.py:399"),
+    "max_pool2x2": ("unet_goolenet_tpu_torch/csrc/pool.cu",
+                    "unet_goolenet_tpu/ops/pallas/conv.py:476"),
+    "max_pool2x2_bwd": ("unet_goolenet_tpu_torch/csrc/pool.cu",
+                        "unet_goolenet_tpu/ops/pallas/conv.py:503"),
+}
+# the trainer's 3x3 convs that feed a BatchNorm at 224^2: (size, cin, cout,
+# calls per forward), 27 in all; the first is inc, whose dx is never taken
+UNET_CONVS = ((224, 3, 64, 1), (112, 64, 128, 1), (112, 128, 128, 3), (56, 128, 256, 1),
+              (56, 256, 256, 3), (28, 256, 512, 1), (28, 512, 512, 3), (14, 512, 512, 4),
+              (28, 1024, 256, 1), (28, 256, 256, 1), (56, 512, 128, 1), (56, 128, 128, 1),
+              (112, 256, 64, 1), (112, 64, 64, 1), (224, 64, 64, 3), (224, 128, 64, 1))
+# the eval step's conv-stack pairs (size, cin, cmid = cout), one call each
+UNET_PAIRS = ((112, 64, 128), (56, 128, 256), (28, 256, 512), (14, 512, 512), (28, 1024, 256),
+              (56, 512, 128), (112, 256, 64), (224, 128, 64))
+# transposed convs (input size, C) and pools (input size, C), one call each
+UNET_DECONVS = ((14, 512), (28, 256), (56, 128), (112, 64))
+UNET_POOLS = ((224, 64), (112, 128), (56, 256), (28, 512))
+# one float32 train step at 224^2, batch 4, kernels and stock, each measured
+# against the stock path in float64 (errors_to): every error of the kernel
+# path may be at most `ratio` times the stock path's plus `floor`, over all
+# leaves and leaf by leaf (a leaf is held to the larger of its own stock
+# error and the whole's, since a leaf's share of the rounding varies). The
+# floors: pass 0's loss and the eval loss are well conditioned; the step's
+# loss and parameters pass through AdamW's first update, lr * ~sign(g),
+# which turns rounding in small gradients into whole-lr moves (the float32
+# stock path read 1.1e-6 from float64 in the step's loss on the card, the
+# kernel path 1.2e-5; PERF.md). `zero` is the share of the largest float64
+# gradient below which a leaf counts as zero analytically (the conv biases
+# ahead of BatchNorm, which AdamW moves by lr * sign(rounding noise)); such
+# leaves are left out of the gradients and the parameters
+TRAIN_TOL = dict(ratio=3.0, zero=1e-10,
+                 floor=dict(loss0=1e-6, loss=1e-4, eval_loss=1e-5, grad=1e-4, stats=1e-4,
+                            params=1e-3))
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, float32 FMA (the
 # kernels' float32 route), and device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -109,6 +184,56 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def trace_device_ms(fns: dict, reps: int = 5) -> dict:
+    """Mean device milliseconds per call of each fns[label], all from one
+    profiler trace: the device time of every kernel and copy the call
+    launches. Unlike cuda_ms it leaves out the gaps in which the device
+    waits for the host, which dominate a call that launches small kernels
+    from Python. After one warm-up call of each, each fn is called reps
+    times inside record_function(label). A device event belongs to the
+    label whose host range holds the runtime call that launched it (the two
+    share a correlation id), so host and device clocks are never compared.
+    Fails if a label holds no device time."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label, fn in fns.items():
+            with record_function(label):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    on_device = [str(k.device_type()).endswith("CUDA") for k in events]
+    spans = sorted((k.start_ns(), k.start_ns() + k.duration_ns(), k.name())
+                   for k, dev in zip(events, on_device) if not dev and k.name() in fns)
+    starts = [sp[0] for sp in spans]
+    # the CUDA API calls that launch work (cudaLaunchKernel, cudaMemcpyAsync, ...)
+    launched = {k.correlation_id(): k.start_ns() for k, dev in zip(events, on_device)
+                if not dev and k.name().startswith("cu")}
+    ns, lost = dict.fromkeys(fns, 0), 0
+    for k, dev in zip(events, on_device):
+        if not dev or k.name() in fns:
+            continue        # host events, and the device-side copies of the ranges
+        t = launched.get(k.correlation_id())
+        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= spans[i][1]:
+            ns[spans[i][2]] += k.duration_ns()
+        else:
+            lost += k.duration_ns()
+    empty = [label for label, t in ns.items() if t <= 0]
+    say("timing", what="trace", labels=len(fns), calls_per_label=reps,
+        device_ms=f"{sum(ns.values()) / 1e6:.3f}", device_ms_unattributed=f"{lost / 1e6:.3f}")
+    if empty:
+        fail(f"the trace holds no device time for {len(empty)} of {len(fns)} calls, "
+             f"e.g. {empty[:3]}")
+    return {label: t / 1e6 / reps for label, t in ns.items()}
 
 
 def cuda_ms_spread(fn, rounds: int = 7, reps: int = 3):
@@ -145,9 +270,14 @@ class Case(NamedTuple):
     nbytes: float
 
     def bound(self, dtype) -> Tuple[float, str]:
-        """(ms, "operations" or "bytes"): the least time the card could take."""
-        ops, mem = self.flops / PEAK_FLOPS[dtype], self.nbytes / PEAK_BYTES
-        return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
+        return bound_of(self.flops, self.nbytes, dtype)
+
+
+def bound_of(flops: float, nbytes: float, dtype) -> Tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for flops operations on dtype and nbytes moved."""
+    ops, mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
 
 
 def _rand(g: torch.Generator, dev):
@@ -289,11 +419,11 @@ def all_cases(n, dtype, dev, seed, ragged=False) -> list:
 
 def counters() -> dict:
     """Each kernel's wrapper, whose .launches counts its launches."""
-    from unet_goolenet_tpu_torch.ops.kernels import down1, up1, up2
+    from unet_goolenet_tpu_torch.ops.kernels import conv, down1, up1, up2
 
     return {"up1_gate": up1.up1_gate, "up1_tail": up1.up1_tail,
             "pool_down1": down1.pool_down1, "up_gate_dense": up2.up_gate_dense,
-            "up_level": up2.up_level}
+            "up_level": up2.up_level, **{name: getattr(conv, name) for name in TRAIN_KERNELS}}
 
 
 def reset_counts() -> None:
@@ -439,6 +569,8 @@ def phase_e2e(dev) -> dict:
             fail(f"result.txt: expected 8 grades in [0, 6), got {lines}")
         say("e2e", dtype="bf16" if flags else "f32", graded=len(lines), grades=grades)
     launches = {k: v for k, v in read_counts().items() if k.startswith("up1_")}
+    if any(v for k, v in read_counts().items() if k in TRAIN_KERNELS):
+        fail("serving launched a training kernel")
     say("e2e", config="default", launches=launches)
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
@@ -469,7 +601,7 @@ def phase_fused(dev, unet, gnet, gray) -> dict:
     if (crops.shape != (16, 224, 224, 3) or logits.shape != (16, 224, 224, 1)
             or not (torch.isfinite(crops).all() and torch.isfinite(logits).all())):
         fail("make_roi_extractor(fused=True): crops/logits of the wrong shape or not finite")
-    launches = read_counts()
+    launches = {k: v for k, v in read_counts().items() if k in KERNELS}
     say("e2e", config="all-fused", extractor="bf16 batch 16",
         mask_share=f"{(torch.sigmoid(logits[..., 0].float()) > 0.5).float().mean().item():.3f}",
         launches=launches)
@@ -612,7 +744,7 @@ def level_stages(dev, calls: int = 10) -> None:
             **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()})
 
 
-def phase_timing(dev, errs, launches) -> list:
+def phase_timing(dev, errs, launches, train_errs, train_launches) -> list:
     from unet_goolenet_tpu_torch.models import GoogLeNetClassifier, UNetTaskAligWeight
     from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline, engine, extract_roi
     from unet_goolenet_tpu_torch.pipeline.two_stage import preprocess_gray
@@ -660,13 +792,438 @@ def phase_timing(dev, errs, launches) -> list:
     fused = TwoStagePipeline(unet, gnet, device=dev, dtype=torch.bfloat16, **FUSED)
     profile_call(lambda: fused.infer_grades(gray), "infer_grades_fused_bf16_b64")
 
-    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], "max_abs_err": errs[name],
-             "ms": agg[name]["ms"], "plain_ms": agg[name]["plain_ms"],
-             "bound_ms": agg[name]["bound_ms"],
-             "bound_by": "operations" if agg[name]["ops"] >= agg[name]["mem"] else "bytes",
-             "library_ms": None, "default_path_ms": agg[name]["default_path_ms"]}
-            for name, (src, rep) in KERNELS.items()]
+    serving = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[name], "max_abs_err": errs[name],
+                "ms": agg[name]["ms"], "plain_ms": agg[name]["plain_ms"],
+                "bound_ms": agg[name]["bound_ms"],
+                "bound_by": "operations" if agg[name]["ops"] >= agg[name]["mem"] else "bytes",
+                "library_ms": None, "default_path_ms": agg[name]["default_path_ms"]}
+               for name, (src, rep) in KERNELS.items()]
+    tagg = time_train(dev)
+    return serving + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": train_launches[name], "max_abs_err": train_errs[name],
+         "ms": tagg[name]["ms"], "plain_ms": tagg[name]["plain_ms"],
+         "bound_ms": tagg[name]["bound_ms"],
+         "bound_by": "operations" if tagg[name]["ops"] >= tagg[name]["mem"] else "bytes",
+         "library_ms": tagg[name]["library_ms"]}
+        for name, (src, rep) in TRAIN_KERNELS.items()]
+
+
+# ------------------------------------------------------------------ training
+
+
+class TCase(NamedTuple):
+    """One training-kernel call at one shape: the wrapper's call, its plain
+    version, the cuDNN call for the same work (or None), the work (flops,
+    bytes: each input read once, each output written once) and the calls of
+    this shape in one forward + backward pass of the train step."""
+    name: str
+    label: str
+    kern: Callable
+    plain: Callable
+    library: Callable
+    flops: float
+    nbytes: float
+    per_pass: int
+
+    def bound(self, dtype) -> Tuple[float, str]:
+        return bound_of(self.flops, self.nbytes, dtype)
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def conv_cases(n, h, w, cin, cout, per_pass, dtype, dev, seed, dx=True) -> list:
+    """fused_conv3x3 as the trainer calls it (scale 1, no relu), its dx
+    (the same kernel on flipped weights) and conv3x3_dw, at one shape."""
+    import torch.nn.functional as F
+    from unet_goolenet_tpu_torch.ops.kernels import conv as K
+
+    g = torch.Generator().manual_seed(seed)
+    r = _rand(g, dev)
+    x, wt, b = r(n, h, w, cin).to(dtype), r(cout, cin, 3, 3, sc=(9 * cin) ** -0.5), r(cout, sc=0.1)
+    one = torch.ones(cout, device=dev)
+    gy = r(n, h, w, cout, sc=1e-3).to(dtype)
+    w_rot = wt.flip(2, 3).transpose(0, 1).contiguous()
+    onei, zeroi = torch.ones(cin, device=dev), torch.zeros(cin, device=dev)
+    wl, bl = wt.to(dtype), b.to(dtype)
+    px, label = n * h * w, f"{n}x{h}x{w} {cin}->{cout}"
+    flops, es = 18.0 * px * cin * cout, torch.finfo(dtype).bits / 8
+    cases = [TCase("fused_conv3x3", label, partial(K.fused_conv3x3, x, wt, one, b, False),
+                   partial(K.fused_conv3x3_ref, x, wt, one, b, False),
+                   lambda: F.conv2d(_nchw(x), wl, bl, padding=1), flops,
+                   es * (x.numel() + wt.numel() + px * cout) + 8.0 * cout, per_pass),
+             TCase("conv3x3_dw", label, partial(K.conv3x3_dw, x, gy), partial(K.conv3x3_dw_ref, x, gy),
+                   lambda: torch.nn.grad.conv2d_weight(_nchw(x), wt.shape, _nchw(gy), padding=1),
+                   flops, es * (x.numel() + gy.numel()) + 4.0 * wt.numel(), per_pass)]
+    if dx and cin % 64 == 0:
+        cases.append(TCase("fused_conv3x3", f"dx {label}",
+                           partial(K.fused_conv3x3, gy, w_rot, onei, zeroi, False),
+                           partial(K.fused_conv3x3_ref, gy, w_rot, onei, zeroi, False),
+                           lambda: torch.nn.grad.conv2d_input(_nchw(x).shape, wl, _nchw(gy),
+                                                              padding=1),
+                           flops, es * (gy.numel() + wt.numel() + x.numel()), per_pass))
+    return cases
+
+
+def pair_cases(n, h, cin, c, dtype, dev, seed) -> list:
+    from unet_goolenet_tpu_torch.ops.kernels import conv as K
+
+    g = torch.Generator().manual_seed(seed)
+    r = _rand(g, dev)
+    x = r(n, h, h, cin).to(dtype)
+    w1, w2 = r(c, cin, 3, 3, sc=(9 * cin) ** -0.5), r(c, c, 3, 3, sc=(9 * c) ** -0.5)
+    vs = (r(c).abs() + 0.5, r(c, sc=0.1), r(c).abs() + 0.5, r(c, sc=0.1))
+    args = (x, w1, vs[0], vs[1], w2, vs[2], vs[3])
+    px, es = n * h * h, torch.finfo(dtype).bits / 8
+    return [TCase("fused_convstack2", f"{n}x{h}x{h} {cin}->{c}->{c}",
+                  partial(K.fused_convstack2, *args), partial(K.fused_convstack2_ref, *args), None,
+                  18.0 * px * c * (cin + c), es * (x.numel() + w1.numel() + w2.numel() + px * c)
+                  + 16.0 * c, 0)]
+
+
+def deconv_cases(n, h, w, c, dtype, dev, seed) -> list:
+    import torch.nn.functional as F
+    from unet_goolenet_tpu_torch.ops.kernels import conv as K
+
+    g = torch.Generator().manual_seed(seed)
+    r = _rand(g, dev)
+    x, wt, b = r(n, h, w, c).to(dtype), r(c, c, 2, 2, sc=c ** -0.5), r(c, sc=0.1)
+    gy = r(n, 2 * h, 2 * w, c, sc=1e-3).to(dtype)
+    wl, bl = wt.to(dtype), b.to(dtype)
+    flops, es, label = 8.0 * n * h * w * c * c, torch.finfo(dtype).bits / 8, f"{n}x{h}x{w}x{c}"
+    return [
+        TCase("deconv2x2", label, partial(K.deconv2x2, x, wt, b), partial(K.deconv2x2_ref, x, wt, b),
+              lambda: F.conv_transpose2d(_nchw(x), wl, bl, stride=2), flops,
+              es * (x.numel() + wt.numel() + gy.numel()) + 4.0 * c, 1),
+        TCase("deconv2x2_dx", label, partial(K.deconv2x2_dx, gy, wt),
+              partial(K.deconv2x2_dx_ref, gy, wt), lambda: F.conv2d(_nchw(gy), wl, stride=2),
+              flops, es * (gy.numel() + wt.numel() + x.numel()), 1),
+        TCase("deconv2x2_dwdb", label, partial(K.deconv2x2_dwdb, x, gy),
+              partial(K.deconv2x2_dwdb_ref, x, gy),
+              lambda: torch.nn.grad.conv2d_weight(_nchw(gy), wt.shape, _nchw(x), stride=2),
+              flops + 1.0 * gy.numel(), es * (x.numel() + gy.numel()) + 4.0 * (wt.numel() + c), 1),
+    ]
+
+
+def pool_cases(n, h, w, c, dtype, dev, seed) -> list:
+    import torch.nn.functional as F
+    from unet_goolenet_tpu_torch.ops.kernels import conv as K
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 5, (n, h, w, c), generator=g).to(dev, dtype)   # ties
+    gy = torch.randn(n, h // 2, w // 2, c, generator=g).to(dev, dtype)
+    _, idx = F.max_pool2d(_nchw(x), 2, return_indices=True)
+    es, label = torch.finfo(dtype).bits / 8, f"{n}x{h}x{w}x{c}"
+    bwd = torch.ops.aten.max_pool2d_with_indices_backward
+    return [
+        TCase("max_pool2x2", label, partial(K.max_pool2x2, x), partial(K.max_pool2x2_ref, x),
+              lambda: F.max_pool2d(_nchw(x), 2), 0.75 * x.numel(), es * 1.25 * x.numel(), 1),
+        TCase("max_pool2x2_bwd", label, partial(K.max_pool2x2_bwd, x, gy),
+              partial(K.max_pool2x2_bwd_ref, x, gy),
+              lambda: bwd(_nchw(gy), _nchw(x), [2, 2], [2, 2], [0, 0], [1, 1], False, idx),
+              0.75 * x.numel(), es * 2.25 * x.numel(), 1),
+    ]
+
+
+def train_cases(n, dtype, dev, seed, ragged=False) -> list:
+    """Every training kernel at the trainer's shapes for n images at 224^2,
+    or at a ragged 20x28 level and cin = 3 on a ragged 36x52 image."""
+    if ragged:
+        return (conv_cases(n, 20, 28, 128, 64, 1, dtype, dev, seed)
+                + conv_cases(n, 36, 52, 3, 64, 1, dtype, dev, seed + 1)
+                + pair_cases(n, 20, 128, 64, dtype, dev, seed + 2)
+                + deconv_cases(n, 10, 14, 128, dtype, dev, seed + 3)
+                + pool_cases(n, 20, 28, 64, dtype, dev, seed + 4))
+    cases = []
+    for i, (h, cin, cout, k) in enumerate(UNET_CONVS):
+        cases += conv_cases(n, h, h, cin, cout, k, dtype, dev, seed + i)
+    for i, (h, cin, c) in enumerate(UNET_PAIRS):
+        cases += pair_cases(n, h, cin, c, dtype, dev, seed + 100 + i)
+    for i, (h, c) in enumerate(UNET_DECONVS):
+        cases += deconv_cases(n, h, h, c, dtype, dev, seed + 200 + i)
+    for i, (h, c) in enumerate(UNET_POOLS):
+        cases += pool_cases(n, h, h, c, dtype, dev, seed + 300 + i)
+    return cases
+
+
+def phase_train_kernels(dev) -> dict:
+    """Each training kernel against its plain version; returns the bf16
+    main-shape max |error| per kernel."""
+    errs = {}
+    for n, ragged in ((4, False), (2, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = {}
+            for case in train_cases(n, dtype, dev, SEED + 11 + ragged, ragged):
+                out, ref = case.kern(), case.plain()
+                torch.cuda.synchronize()
+                for g, r in zip(*(t if isinstance(t, tuple) else (t,) for t in (out, ref))):
+                    g, r = g.float(), r.float()
+                    if g.shape != r.shape or not torch.isfinite(g).all():
+                        fail(f"{case.name} {dtype} {case.label}: shape or non-finite values")
+                    err = (g - r).abs().max().item()
+                    rel = err / max(r.abs().max().item(), 1e-30)
+                    if rel > KERNEL_TOL[dtype]:
+                        fail(f"{case.name} {dtype} {case.label} disagrees with its plain "
+                             f"version: {rel:.3e} of its max |value|")
+                    a, w = worst.get(case.name, (0.0, 0.0))
+                    worst[case.name] = (max(a, err), max(w, rel))
+            for name, (a, w) in worst.items():
+                say("kernel", name=name, dtype=dname(dtype),
+                    shapes="ragged 20x28, cin 3 at 36x52" if ragged else "trainer, batch 4, 224^2",
+                    max_abs_err=f"{a:.3e}", max_rel_err=f"{w:.3e}", tol=f"{KERNEL_TOL[dtype]:.0e}",
+                    ok=True)
+                if not ragged and dtype == torch.bfloat16:
+                    errs[name] = a
+    return errs
+
+
+def write_seg_fixture(root: str, counts: dict) -> None:
+    """Seeded RGB PNGs (400x500, a bright lesion on speckle) with 0/255
+    masks in the reference's layout: <split>/images, <split>/labels."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 5)
+    for split, n in counts.items():
+        for d in ("images", "labels"):
+            path = os.path.join(root, split, d)
+            os.makedirs(path, exist_ok=True)
+            for f in os.listdir(path):
+                os.remove(os.path.join(path, f))
+        for i in range(n):
+            h, w = 400, 500
+            yy, xx = np.mgrid[0:h, 0:w]
+            m = ((yy - h * rng.uniform(0.3, 0.7)) / rng.uniform(40, 90)) ** 2 \
+                + ((xx - w * rng.uniform(0.3, 0.7)) / rng.uniform(40, 90)) ** 2 < 1
+            img = np.clip(60 + 90 * m[..., None] + rng.normal(0, 25, (h, w, 3)), 0, 255)
+            name = f"{i % 6 + 1}_{i}.png"
+            Image.fromarray(img.astype(np.uint8)).save(os.path.join(root, split, "images", name))
+            Image.fromarray((m * 255).astype(np.uint8)).save(
+                os.path.join(root, split, "labels", name))
+
+
+def phase_train(dev) -> dict:
+    """The trainer through its entry point with --kernels (bf16), then the
+    float32 kernel path against the stock path; returns the counters of the
+    trainer's run."""
+    from unet_goolenet_tpu_torch.apps import train_seg
+    from unet_goolenet_tpu_torch.train.seg import init_seg_state
+
+    root = os.path.join(WORK, "seg")
+    write_seg_fixture(root, {"train": 8, "val": 4})
+    ckpt = os.path.join(WORK, "ckpt")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_seg.main(["--train-dir", os.path.join(root, "train"), "--val-dir",
+                          os.path.join(root, "val"), "--epochs", "2", "--batch-size", "4",
+                          "--img-size", "224", "--device", str(dev), "--kernels", "--bf16",
+                          "--save-dir", ckpt, "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if k in TRAIN_KERNELS}
+    say("train", entry="apps.train_seg.main --kernels --bf16", epochs=2, batch=4, img=224,
+        seconds=f"{secs:.2f}", best_val_loss=f"{out['best_val_loss']:.5f}",
+        best_dice=f"{out['best_dice']:.4f}", launches=launches)
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the training path never launched: {launches}")
+    if not np.isfinite(out["best_val_loss"]):
+        fail("the trainer's val loss is not finite")
+    state = init_seg_state(img_size=224, kernels=True, device=dev)
+    from unet_goolenet_tpu_torch.train.checkpoint import CheckpointManager
+
+    _, epoch = CheckpointManager(ckpt).restore(out["best_loss_checkpoint"], state)
+    say("train", checkpoint=os.path.basename(out["best_loss_checkpoint"]), reloaded_epoch=epoch)
+    check_train_step(dev)
+    return launches
+
+
+def one_train_step(dev, sd, imgs, labels, kernels: bool, dtype) -> dict:
+    """From the state dict sd: pass 0's loss and gradients, then one train
+    step (two AdamW updates) and one eval step, in dtype."""
+    from unet_goolenet_tpu_torch.models import UNetTaskAligWeight
+    from unet_goolenet_tpu_torch.train import optim
+    from unet_goolenet_tpu_torch.train.losses import dc_and_bce_loss
+    from unet_goolenet_tpu_torch.train.seg import SegState, make_seg_eval_step, make_seg_train_step
+
+    model = UNetTaskAligWeight(1, img_size=imgs.shape[1], kernels=kernels).to(dev, dtype)
+    model.load_state_dict(sd)
+    model.train()
+    imgs, labels = imgs.to(dtype), labels.to(dtype)
+    loss0 = dc_and_bce_loss(model(imgs), labels)
+    loss0.backward()
+    grads = {k: (p.grad.detach().double() if p.grad is not None
+                 else torch.zeros_like(p, dtype=torch.float64))
+             for k, p in model.named_parameters()}
+    model.load_state_dict(sd)
+    opt = optim.make_adamw(model.parameters(), 1e-4)
+    metrics = make_seg_train_step(SegState(model, opt))(imgs, labels)
+    eval_loss, masks = make_seg_eval_step(model)(imgs, labels)
+    return dict(loss0=loss0.item(), grads=grads, loss=metrics["loss"].item(),
+                state={k: v.detach().double() for k, v in model.state_dict().items()
+                       if not k.endswith("num_batches_tracked")},
+                eval_loss=eval_loss.item(), masks=masks)
+
+
+def errors_to(run: dict, truth: dict, sd: dict) -> dict:
+    """run's distance from the float64 truth, each relative: pass 0's loss,
+    the step's loss, the eval loss; and as (over all leaves, {leaf: error}),
+    L2 norms of the difference over that of the truth: pass 0's gradients,
+    the batch statistics after the step, and the parameters after the step
+    (over the float64 step's own change). Gradients and parameters leave
+    out the leaves zero analytically (below TRAIN_TOL["zero"] of the
+    largest float64 gradient: the conv biases ahead of BatchNorm)."""
+    big = max(v.abs().max().item() for v in truth["grads"].values())
+    live = [k for k, v in truth["grads"].items() if v.abs().max().item() > TRAIN_TOL["zero"] * big]
+    stat_keys = [k for k in truth["state"] if k.endswith(("running_mean", "running_var"))]
+
+    def rel(diff, base, keys) -> tuple:
+        d = {k: float((diff(k) ** 2).sum()) for k in keys}
+        b = {k: float((base(k) ** 2).sum()) for k in keys}
+        return ((sum(d.values()) / sum(b.values())) ** 0.5,
+                {k: (d[k] / b[k]) ** 0.5 for k in keys})
+
+    return dict(
+        loss0=abs(run["loss0"] - truth["loss0"]) / abs(truth["loss0"]),
+        loss=abs(run["loss"] - truth["loss"]) / abs(truth["loss"]),
+        eval_loss=abs(run["eval_loss"] - truth["eval_loss"]) / abs(truth["eval_loss"]),
+        grad=rel(lambda k: run["grads"][k] - truth["grads"][k], lambda k: truth["grads"][k], live),
+        stats=rel(lambda k: run["state"][k] - truth["state"][k], lambda k: truth["state"][k],
+                  stat_keys),
+        params=rel(lambda k: run["state"][k] - truth["state"][k],
+                   lambda k: truth["state"][k] - sd[k].to(truth["state"][k]), live))
+
+
+def hold(stock: dict, kern: dict) -> tuple:
+    """(failures, worst): each of kern's errors against TRAIN_TOL["ratio"]
+    times stock's plus the floor, over all leaves and leaf by leaf (a leaf's
+    limit from the larger of its stock error and the whole's); worst is each
+    group's largest share of its limit, with the leaf."""
+    ratio, bad, worst = TRAIN_TOL["ratio"], [], {}
+    for k, floor in TRAIN_TOL["floor"].items():
+        if not isinstance(stock[k], tuple):
+            lim = ratio * stock[k] + floor
+            worst[k] = (kern[k] / lim, "")
+            if kern[k] > lim:
+                bad.append(f"{k} {kern[k]:.3e} > {lim:.3e}")
+            continue
+        (s_all, s_leaf), (k_all, k_leaf) = stock[k], kern[k]
+        lim = ratio * s_all + floor
+        worst[k] = (k_all / lim, "all")
+        if k_all > lim:
+            bad.append(f"{k} over all leaves {k_all:.3e} > {lim:.3e}")
+        for leaf, e in k_leaf.items():
+            lim = ratio * max(s_leaf[leaf], s_all) + floor
+            worst[k] = max(worst[k], (e / lim, leaf))
+            if e > lim:
+                bad.append(f"{k} {leaf} {e:.3e} > {lim:.3e}")
+    return bad, worst
+
+
+def check_train_step(dev) -> None:
+    """One full-width 224^2 batch-4 train step and eval step, float32 (TF32
+    off), with the kernels and on the stock path, each held to the stock
+    path in float64 from the same weights and batch (hold, TRAIN_TOL). The
+    step is ill-conditioned in float32 (train-mode BatchNorm and AdamW's
+    sign-like first update amplify rounding), so two float32
+    implementations cannot be held to each other tightly; the float64 stock
+    path is the measure of both."""
+    from unet_goolenet_tpu_torch.models import UNetTaskAligWeight
+
+    torch.manual_seed(SEED + 6)
+    sd = UNetTaskAligWeight(1).state_dict()
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    imgs = torch.rand((4, 224, 224, 3), generator=g, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(224, device=dev), torch.arange(224, device=dev),
+                            indexing="ij")
+    labels = (((yy - 112) ** 2 + (xx - 100) ** 2) < 60 ** 2).float()[None, :, :, None].expand(
+        4, -1, -1, -1).contiguous()
+    truth = one_train_step(dev, sd, imgs, labels, False, torch.float64)
+    stock = errors_to(one_train_step(dev, sd, imgs, labels, False, torch.float32), truth, sd)
+    kern_run = one_train_step(dev, sd, imgs, labels, True, torch.float32)
+    kern = errors_to(kern_run, truth, sd)
+    bad, worst = hold(stock, kern)
+    mask_diff = (kern_run["masks"] != truth["masks"]).float().mean().item()
+    whole = lambda e: {k: f"{v[0] if isinstance(v, tuple) else v:.3e}" for k, v in e.items()}
+    say("train", check="f32 train + eval step vs the float64 stock path, 224^2 batch 4",
+        loss0=f"{truth['loss0']:.8f}", eval_loss=f"{truth['eval_loss']:.8f}",
+        live_leaves=len(kern["grad"][1]), stock_f32=repr(whole(stock)),
+        kernels_f32=repr(whole(kern)),
+        worst_share_of_limit=repr({k: f"{v:.3f}@{leaf}" for k, (v, leaf) in worst.items()}),
+        eval_mask_share_differing=f"{mask_diff:.5f}", tol=repr(TRAIN_TOL))
+    if bad:
+        fail(f"the kernel path's train step is further from float64 than the stock path's "
+             f"allows: {bad[:5]}")
+
+
+def time_train(dev) -> dict:
+    """ms per train step and eval step (kernels and stock, bf16 and
+    float32, in turns), one profiled bf16 step each way, and each training
+    kernel's device time against its plain version's and cuDNN's (the
+    wrapper's whole call: its weight layout and scratch too); returns the
+    per-kernel bf16 sums per forward + backward pass (eval-only kernels: per
+    eval step)."""
+    from unet_goolenet_tpu_torch.models import UNetTaskAligWeight
+    from unet_goolenet_tpu_torch.train import optim
+    from unet_goolenet_tpu_torch.train.seg import SegState, make_seg_eval_step, make_seg_train_step
+
+    torch.manual_seed(SEED + 8)
+    sd = UNetTaskAligWeight(1).state_dict()
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    imgs = torch.rand((4, 224, 224, 3), generator=g, device=dev)
+    labels = (torch.rand((4, 224, 224, 1), generator=g, device=dev) > 0.7).float()
+    for bf16 in (True, False):
+        steps, evals = {}, {}
+        for kernels in (False, True):
+            model = UNetTaskAligWeight(1, kernels=kernels).to(dev)
+            model.load_state_dict(sd)
+            st = SegState(model, optim.make_adamw(model.parameters(), 1e-4))
+            steps[kernels] = partial(make_seg_train_step(st, bf16=bf16), imgs, labels)
+            evals[kernels] = partial(make_seg_eval_step(model, bf16=bf16), imgs, labels)
+        runs = {(what, k): [] for what in ("step", "eval") for k in (False, True)}
+        for k in (False, True, True, False):
+            runs["step", k].append(cuda_ms(steps[k], 3))
+            runs["eval", k].append(cuda_ms(evals[k], 5))
+        for (what, k), rs in runs.items():
+            say("timing", what=f"train_{what}", path="kernels" if k else "stock",
+                dtype="bfloat16" if bf16 else "float32", batch=4, img=224,
+                ms=f"{sum(rs) / len(rs):.3f}", runs_ms=",".join(f"{v:.3f}" for v in rs))
+        if bf16:
+            for k in (False, True):
+                profile_call(steps[k], f"train_step_bf16_b4_{'kernels' if k else 'stock'}")
+        del steps, evals
+    agg = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0.0, mem=0.0)
+           for name in TRAIN_KERNELS}
+    cases = {dtype: train_cases(4, dtype, dev, SEED + 13)
+             for dtype in (torch.bfloat16, torch.float32)}
+    fns = {}
+    for dtype, cs in cases.items():
+        for i, case in enumerate(cs):
+            fns[f"{dname(dtype)} {i} kernel"] = case.kern
+            fns[f"{dname(dtype)} {i} plain"] = case.plain
+            if case.library:
+                fns[f"{dname(dtype)} {i} library"] = case.library
+    ms = trace_device_ms(fns)
+    for dtype, cs in cases.items():
+        for i, case in enumerate(cs):
+            km, pm = ms[f"{dname(dtype)} {i} kernel"], ms[f"{dname(dtype)} {i} plain"]
+            lm = ms.get(f"{dname(dtype)} {i} library")
+            bound, by = case.bound(dtype)
+            say("timing", what=case.name, shape=repr(case.label), dtype=dname(dtype), batch=4,
+                device_ms=f"{km:.4f}", plain_device_ms=f"{pm:.4f}",
+                library_device_ms="null" if lm is None else f"{lm:.4f}",
+                wall_ms=f"{cuda_ms(case.kern, 5):.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+                share_of_bound=f"{bound / km:.3f}", calls_per_pass=case.per_pass)
+            if dtype == torch.bfloat16:
+                a, w = agg[case.name], max(case.per_pass, 1)
+                a["ms"] += w * km
+                a["plain_ms"] += w * pm
+                a["library_ms"] = None if lm is None else a["library_ms"] + w * lm
+                a["bound_ms"] += w * bound
+                a["ops"] += w * case.flops / PEAK_FLOPS[dtype]
+                a["mem"] += w * case.nbytes / PEAK_BYTES
+    return agg
 
 
 def host_ms(fn, calls: int = 7):
@@ -728,8 +1285,10 @@ def main() -> None:
     os.makedirs(WORK, exist_ok=True)
     phase_build()
     errs = phase_kernels(dev)
+    train_errs = phase_train_kernels(dev)
     launches = phase_e2e(dev)
-    kernels = phase_timing(dev, errs, launches)
+    train_launches = phase_train(dev)
+    kernels = phase_timing(dev, errs, launches, train_errs, train_launches)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,15 +5,18 @@ pool + down1, up4-up2 and up1 through its kernels (plain versions on the
 CPU); the JAX side runs `unet_forward_packed` with all four fused levels, in
 Pallas interpret mode, through its own entry points: `apps.train_cls`'s
 `make_roi_extractor(engine=True, fused=True)` and `TwoStagePipeline` with
-every fused knob on. The model is the full-width flagship at 32x32, where
-every fused level of the JAX engine has a tile (asserted), so that no level
-quietly takes its XLA path. Weights: seeded reference-named state dicts
+every fused knob on, once each in a module fixture that every test shares.
+The model is the full-width flagship at 32x32, where every fused level of
+the JAX engine has a tile (asserted), so that no level quietly takes its
+XLA path. Weights: seeded reference-named state dicts
 through the JAX converter, with the UNet head rescaled so that no seg logit
 lies near the mask threshold (as in test_torch_pipeline.py), so masks, boxes
 and grades compare exactly. Tolerances: the UNet logits 1e-4 (float32, only
 summation order differs); the pipeline's and extractor's outputs 1e-3, as
 in test_torch_pipeline.py.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from unet_goolenet_tpu.ops import pallas as pk
 from unet_goolenet_tpu.pipeline import TwoStagePipeline as JPipeline
 from unet_goolenet_tpu_torch.apps.train_cls import make_roi_extractor
 from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline, engine, preprocess_gray
+from torch_threads import torch_threads  # noqa: F401  (autouse)
 
 pk.interpret_mode(True)
 
@@ -72,12 +76,20 @@ def fused():
     imgs = preprocess_gray(gray, out_hw=(S, S))
     juv = jax.tree_util.tree_map(jnp.asarray, uv)
     extract = jax_extractor(JUNet(n_classes=1), juv, S, engine=True, fused=True)
-    jcrops, jlogits = extract(jnp.asarray(imgs.numpy()))
     jpipe = JPipeline(JUNet(n_classes=1), juv, JGNet(num_classes=6),
                       jax.tree_util.tree_map(jnp.asarray, gv), img_size=S, fused_up1=True,
                       **KNOBS)
-    jout = jpipe.infer_from_gray(jnp.asarray(gray.numpy()))
+    # the extractor's trace and compile overlap the pipeline's in a thread
+    got = {}
+    thread = threading.Thread(
+        target=lambda: got.update(extractor=extract(jnp.asarray(imgs.numpy()))))
+    thread.start()
+    try:
+        jout = jpipe.infer_from_gray(jnp.asarray(gray.numpy()))
+    finally:
+        thread.join()
     jout = {k: np.asarray(v) for k, v in jout.items()}
+    jcrops, jlogits = got["extractor"]
     return {"gray": gray, "imgs": imgs, "unet": unet, "gnet": gnet,
             "jcrops": np.asarray(jcrops), "jlogits": np.asarray(jlogits), "jout": jout}
 

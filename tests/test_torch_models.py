@@ -24,11 +24,12 @@ from unet_goolenet_tpu_torch.models import (
     GoogLeNetClassifier, UNetTaskAligWeight, gnet_from_jax, load_reference_state_dict,
     unet_from_jax)
 from unet_goolenet_tpu_torch.pipeline import engine
+from torch_threads import torch_threads  # noqa: F401  (autouse)
 
 pk.interpret_mode(True)
 
 TOL = dict(rtol=2e-3, atol=2e-4)
-S = 64
+S = 32
 
 
 def jax_variables(img_size=S, seed=7):
@@ -68,8 +69,16 @@ def setup():
     return x, JUNet(n_classes=1), uv, JGNet(num_classes=6), gv, unet, gnet
 
 
+_APPLY = {}
+
+
 def apply_fn(model):
-    return jax.jit(lambda v, x: model.apply(v, x, train=False))
+    """A jitted eval-mode apply, one per model configuration, so that calls
+    with the same shapes reuse one compile."""
+    key = repr(model)
+    if key not in _APPLY:
+        _APPLY[key] = jax.jit(lambda v, x: model.apply(v, x, train=False))
+    return _APPLY[key]
 
 
 def test_unet_module_matches_flax_apply(setup):
@@ -139,11 +148,20 @@ def test_load_reference_state_dict_drops_dead_keys(tmp_path):
     assert any("deformabel" in k for k in sd) and "fc1.weight" in sd
     assert any("cross_attention_seg" in k for k in sd)
     path = tmp_path / "unet.pt"
+    # the reference's 224^2 checkpoint into the default model: names and shapes
     torch.save({"net": {k: torch.as_tensor(v) for k, v in sd.items()}, "epoch": 3}, path)
-    unet = load_reference_state_dict(str(path), UNetTaskAligWeight(1)).eval()
+    full = load_reference_state_dict(str(path), UNetTaskAligWeight(1)).state_dict()
+    for k, v in full.items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(sd[k]), err_msg=k)
+    del full
+    for k in ("task2.pos_embedding_decoder_cl", "task2.pos_embedding_decoder_seg"):
+        assert sd[k].shape == (1, 512, 14, 14)   # the reference's 224^2 size
+        sd[k] = sd[k][:, :, :S // 16, :S // 16]   # cut to the bottleneck of S x S
+    torch.save({"net": {k: torch.as_tensor(v) for k, v in sd.items()}, "epoch": 3}, path)
+    unet = load_reference_state_dict(str(path), UNetTaskAligWeight(1, img_size=S)).eval()
     for k, v in unet.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(sd[k]))
-    x = np.random.default_rng(9).uniform(0.0, 1.0, (1, 224, 224, 3)).astype(np.float32)
+    x = np.random.default_rng(9).uniform(0.0, 1.0, (2, S, S, 3)).astype(np.float32)
     params, stats, _ = convert_unet_task_alig_weight(sd)
     ref = np.asarray(apply_fn(JUNet(n_classes=1))(as_variables(params, stats), jnp.asarray(x)))
     with torch.no_grad():
@@ -155,7 +173,7 @@ def test_load_reference_state_dict_drops_dead_keys(tmp_path):
     torch.save({k: torch.as_tensor(v) for k, v in gsd.items()}, gpath)    # bare form
     gnet = load_reference_state_dict(str(gpath), GoogLeNetClassifier(6)).eval()
     params, stats, _ = convert_googlenet_classifier(gsd)
-    xg = x[:, :96, :96]
+    xg = x
     gref = np.asarray(apply_fn(JGNet(num_classes=6))(as_variables(params, stats),
                                                      jnp.asarray(xg)))
     with torch.no_grad():

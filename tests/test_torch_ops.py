@@ -20,6 +20,7 @@ from unet_goolenet_tpu import ops as J
 from unet_goolenet_tpu.ops.resize import _weight_mat as jax_weight_mat
 from unet_goolenet_tpu_torch import ops as T
 from unet_goolenet_tpu_torch.ops.pool import max_pool2d_nchw
+from torch_threads import torch_threads  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 RNG = np.random.default_rng(2024)

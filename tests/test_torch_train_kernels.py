@@ -1,0 +1,257 @@
+"""Kernels 6-9 of the port (ops/kernels/conv.py) against the JAX package's
+Pallas kernels in `unet_goolenet_tpu/ops/pallas/conv.py`, and (on a CUDA
+device) each kernel against its plain version.
+
+On the CPU the wrappers and the autograd functions `conv3x3`, `deconv` and
+`pool2x2` run the plain versions, forward and backward; the JAX side runs
+`fused_conv3x3`, `fused_convstack2`, `conv_transpose2x2_pallas` and
+`max_pool2x2_pallas` in Pallas interpret mode, as tests/test_pallas.py does,
+with their custom VJPs. Shapes follow test_pallas.py's (a 3-channel input
+for the conv, a multi-tile deconv, exact ties in the pool). Gradients are
+taken of sum(f(x) * c) for a seeded cotangent c on both sides. Tolerance:
+1e-4 of the reference's max |value| in float32, for values and gradients.
+
+On a GPU host without JAX: `python -m pytest --noconftest -m cuda
+tests/test_torch_train_kernels.py`. There each kernel, forward and every
+backward, is held to its plain version at 1e-4 (float32, TF32 off) and 2e-2
+(bfloat16) of the plain result's max |value|, at ragged sizes and cin = 3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from unet_goolenet_tpu_torch.ops.kernels import conv as K
+from torch_threads import torch_threads  # noqa: F401  (autouse)
+
+RTOL = 1e-4
+
+
+def close(got, want, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, what
+    err = np.abs(got - want).max()
+    assert err <= RTOL * max(np.abs(want).max(), 1e-30), f"{what}: {err:.3e}"
+
+
+@pytest.fixture(scope="module")
+def pk():
+    pytest.importorskip("jax")
+    from unet_goolenet_tpu.ops import pallas
+
+    pallas.interpret_mode(True)
+    return pallas
+
+
+def rand(rng, *shape, sc=1.0):
+    return (rng.standard_normal(shape) * sc).astype(np.float32)
+
+
+def grads(fn, args, cot):
+    """Gradients of sum(fn(*args) * cot) with respect to every arg (torch)."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    (fn(*ts) * torch.from_numpy(cot)).sum().backward()
+    return [t.grad.numpy() for t in ts]
+
+
+def jax_grads(fn, args, cot):
+    import jax
+    import jax.numpy as jnp
+
+    return [np.asarray(g) for g in jax.grad(
+        lambda *a: jnp.sum(fn(*a) * cot), argnums=tuple(range(len(args))))(
+            *(jnp.asarray(a) for a in args))]
+
+
+def hwio(w):
+    """OIHW numpy -> the JAX kernel's HWIO."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,relu", [(2, 16, 24, 3, 16, True)])
+def test_fused_conv3x3_matches_pallas(pk, n, h, w, cin, cout, relu):
+    """cin = 3 with relu; relu=False is the train path's call, which
+    test_torch_train_step.py holds to the JAX step."""
+    rng = np.random.default_rng(1)
+    x, wt = rand(rng, n, h, w, cin), rand(rng, cout, cin, 3, 3, sc=(9 * cin) ** -0.5)
+    scale, bias = np.abs(rand(rng, cout)) + 0.5, rand(rng, cout, sc=0.1)
+    cot = rand(rng, n, h, w, cout)
+    port = lambda x_, w_, s_, b_: K.conv3x3(x_, w_, s_, b_, relu)
+    jfn = lambda x_, w_, s_, b_: pk.fused_conv3x3(x_, w_.transpose(2, 3, 1, 0), s_, b_, relu)
+    args = (x, wt, scale, bias)
+    with torch.no_grad():
+        got = port(*(torch.from_numpy(a) for a in args)).numpy()
+    close(got, np.asarray(jfn(*args)), "forward")
+    for name, g, r in zip(("dx", "dw", "dscale", "dbias"), grads(port, args, cot),
+                          jax_grads(jfn, args, cot)):
+        close(g, r, name)
+
+
+def test_fused_convstack2_matches_pallas(pk):
+    rng = np.random.default_rng(2)
+    x = rand(rng, 2, 8, 12, 16)
+    w1, w2 = rand(rng, 32, 16, 3, 3, sc=0.1), rand(rng, 16, 32, 3, 3, sc=0.1)
+    s1, b1 = np.abs(rand(rng, 32)) + 0.5, rand(rng, 32, sc=0.1)
+    s2, b2 = np.abs(rand(rng, 16)) + 0.5, rand(rng, 16, sc=0.1)
+    t = torch.from_numpy
+    got = K.fused_convstack2(t(x), t(w1), t(s1), t(b1), t(w2), t(s2), t(b2)).numpy()
+    close(got, np.asarray(pk.fused_convstack2(x, hwio(w1), s1, b1, hwio(w2), s2, b2)))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 8, 12, 8, 4)])
+def test_deconv_matches_pallas(pk, n, h, w, cin, cout):
+    """(2, 8, 12) is test_pallas.py's multi-tile case: the JAX dW/db
+    accumulator is revisited across grid steps."""
+    rng = np.random.default_rng(3)
+    x, wt, b = rand(rng, n, h, w, cin), rand(rng, cin, cout, 2, 2), rand(rng, cout)
+    cot = rand(rng, n, 2 * h, 2 * w, cout)
+    jfn = lambda x_, w_, b_: pk.conv_transpose2x2_pallas(x_, w_.transpose(2, 3, 0, 1), b_)
+    args = (x, wt, b)
+    with torch.no_grad():
+        close(K.deconv(*(torch.from_numpy(a) for a in args)).numpy(), np.asarray(jfn(*args)))
+    for name, g, r in zip(("dx", "dw", "db"), grads(K.deconv, args, cot),
+                          jax_grads(jfn, args, cot)):
+        close(g, r, name)
+
+
+@pytest.mark.parametrize("ties", [True, False], ids=["ties", "distinct"])
+def test_max_pool_matches_pallas(pk, ties):
+    """Ties: integer values in {0, 1, 2}, so most windows hold several
+    maxima; the gradient must go to the first in (r0c0, r0c1, r1c0, r1c1)
+    order on both sides, exactly."""
+    rng = np.random.default_rng(4)
+    if ties:
+        x = rng.integers(0, 3, (2, 8, 8, 4)).astype(np.float32)
+    else:
+        x = rng.permutation(16 * 16 * 4).reshape(1, 16, 16, 4).astype(np.float32)
+    cot = rand(rng, x.shape[0], x.shape[1] // 2, x.shape[2] // 2, 4)
+    with torch.no_grad():
+        got = K.pool2x2(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(pk.max_pool2x2_pallas(x)))
+    (g,), (r,) = grads(K.pool2x2, (x,), cot), jax_grads(pk.max_pool2x2_pallas, (x,), cot)
+    np.testing.assert_array_equal(g, r)
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    """On CPU tensors every wrapper returns its plain version's result and
+    counts no launch; the conv's dx is skipped when its input needs no
+    gradient."""
+    rng = np.random.default_rng(5)
+    t = lambda *s: torch.from_numpy(rand(rng, *s))
+    before = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+    x, w, s, b = t(1, 6, 10, 3), t(64, 3, 3, 3), t(64), t(64)
+    torch.testing.assert_close(K.fused_conv3x3(x, w, s, b, True),
+                               K.fused_conv3x3_ref(x, w, s, b, True), rtol=0, atol=0)
+    g = t(1, 6, 10, 64)
+    torch.testing.assert_close(K.conv3x3_dw(x, g), K.conv3x3_dw_ref(x, g), rtol=0, atol=0)
+    xd, wd, bd = t(1, 3, 5, 64), t(64, 64, 2, 2), t(64)
+    torch.testing.assert_close(K.deconv2x2(xd, wd, bd), K.deconv2x2_ref(xd, wd, bd))
+    xp = t(1, 6, 10, 64)
+    torch.testing.assert_close(K.max_pool2x2(xp), K.max_pool2x2_ref(xp), rtol=0, atol=0)
+    assert {fn.__name__: fn.launches for fn in K.WRAPPERS} == before
+    wg = w.clone().requires_grad_()
+    K.conv3x3(x, wg, s, b, False).sum().backward()
+    assert wg.grad is not None and x.grad is None
+
+
+# ------------------------------------------------------------------ on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the conv, deconv and pool kernels run only on the GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+CUDA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def on_card(cuda, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).to(cuda)
+
+
+def agrees(got, ref, dtype):
+    got, ref = got.float(), ref.float()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+    assert err <= CUDA_TOL[dtype], err
+
+
+def counted(fn, *args):
+    n0 = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 20, 28, 64, 128), (2, 16, 24, 3, 64),
+                                            (1, 9, 13, 128, 64)])
+def test_conv3x3_kernels_match_plain(cuda, dtype, n, h, w, cin, cout):
+    r = on_card(cuda, dtype, 6)
+    x, wt = r(n, h, w, cin).to(dtype), r(cout, cin, 3, 3, sc=(9 * cin) ** -0.5)
+    s, b, g = r(cout).abs() + 0.5, r(cout, sc=0.1), r(n, h, w, cout).to(dtype)
+    for relu in (True, False):
+        agrees(counted(K.fused_conv3x3, x, wt, s, b, relu), K.fused_conv3x3_ref(x, wt, s, b, relu),
+               dtype)
+    agrees(counted(K.conv3x3_dw, x, g), K.conv3x3_dw_ref(x, g), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convstack2_kernel_matches_plain(cuda, dtype):
+    r = on_card(cuda, dtype, 7)
+    x = r(2, 20, 28, 128).to(dtype)
+    w1, w2 = r(64, 128, 3, 3, sc=(9 * 128) ** -0.5), r(128, 64, 3, 3, sc=(9 * 64) ** -0.5)
+    vs = (r(64).abs() + 0.5, r(64, sc=0.1), r(128).abs() + 0.5, r(128, sc=0.1))
+    agrees(counted(K.fused_convstack2, x, w1, vs[0], vs[1], w2, vs[2], vs[3]),
+           K.fused_convstack2_ref(x, w1, vs[0], vs[1], w2, vs[2], vs[3]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c", [(2, 10, 14, 128), (1, 7, 9, 512)])
+def test_deconv_kernels_match_plain(cuda, dtype, n, h, w, c):
+    r = on_card(cuda, dtype, 8)
+    x, wt, b = r(n, h, w, c).to(dtype), r(c, c, 2, 2, sc=c ** -0.5), r(c, sc=0.1)
+    g = r(n, 2 * h, 2 * w, c).to(dtype)
+    agrees(counted(K.deconv2x2, x, wt, b), K.deconv2x2_ref(x, wt, b), dtype)
+    agrees(counted(K.deconv2x2_dx, g, wt), K.deconv2x2_dx_ref(g, wt), dtype)
+    for got, ref in zip(counted(K.deconv2x2_dwdb, x, g), K.deconv2x2_dwdb_ref(x, g)):
+        agrees(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernels_match_plain_with_ties(cuda, dtype):
+    g = torch.Generator().manual_seed(9)
+    x = torch.randint(0, 3, (2, 20, 28, 64), generator=g).to(cuda, dtype)
+    gy = torch.randn(2, 10, 14, 64, generator=g).to(cuda, dtype)
+    assert torch.equal(counted(K.max_pool2x2, x), K.max_pool2x2_ref(x))
+    assert torch.equal(counted(K.max_pool2x2_bwd, x, gy), K.max_pool2x2_bwd_ref(x, gy))
+
+
+@pytest.mark.cuda
+def test_model_kernel_path_launches_or_raises(cuda):
+    """With kernels=True a CUDA forward and backward launch every kernel of
+    the train path; a shape a kernel cannot take raises, it does not fall
+    back."""
+    from unet_goolenet_tpu_torch.models import UNetTaskAligWeight
+
+    model = UNetTaskAligWeight(1, img_size=32, kernels=True).to(cuda).train()
+    before = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+    model(torch.rand(2, 32, 32, 3, device=cuda)).sum().backward()
+    model.eval()
+    with torch.no_grad():
+        model(torch.rand(2, 32, 32, 3, device=cuda))
+    torch.cuda.synchronize()
+    assert all(fn.launches > before[fn.__name__] for fn in K.WRAPPERS)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        K.fused_conv3x3(torch.rand(1, 8, 8, 64, device=cuda), torch.rand(32, 64, 3, 3),
+                        torch.ones(32), torch.zeros(32), True)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from unet_goolenet_tpu_torch.ops.kernels import up1 as K
+from torch_threads import torch_threads  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -1,9 +1,10 @@
-// One implicit-GEMM convolution kernel for the gate passes and the dense
-// decoder and encoder levels (gate.cu, up_level.cu, down1.cu), where channel
-// counts run from 64 to 1024 and neither the weights nor an intermediate of a
-// whole level fit in a block's shared memory.
+// One implicit-GEMM convolution kernel for the gate passes, the dense
+// decoder and encoder levels and the training convolutions (gate.cu,
+// up_level.cu, down1.cu, conv.cu, deconv.cu), where channel counts run from
+// 3 to 1024 and neither the weights nor an intermediate of a whole level fit
+// in a block's shared memory.
 //
-// conv_kernel<T, K, POOL, MODE> computes, for one 8x16-pixel output tile of
+// conv_kernel<T, K, SRC, MODE> computes, for one 8x16-pixel output tile of
 // one image and one block of 64 output channels (grid: tiles x cout/64 x N),
 //     acc = sum over 64-channel input slabs of convKxK(slab, w) (pad K/2)
 // and then an epilogue chosen by MODE:
@@ -16,26 +17,33 @@
 //     HEAD    (cout = 64) y = round(relu(acc + b)); out = y @ wout + bout:
 //             a 1x1 head with ncls outputs, so that only the logits reach
 //             device memory
+//     AFFINE  out = acc * scale + b, then relu if a.relu: the fused conv +
+//             BatchNorm epilogue of conv.cu
 // Every stored value is rounded to T, as the TPU kernels round them; the
 // arithmetic is float32.
 //
-// Input slabs: channel ci < c0 comes from src0 (c0 channels per pixel), the
-// rest from src1, so a conv over concat[up, gated] reads both tensors without
-// a concatenated copy (the split sum of the pair conv). POOL reads src0 at
+// Input slabs (SRC): DENSE reads channel ci < c0 from src0 (c0 channels per
+// pixel) and the rest from src1, so a conv over concat[up, gated] reads both
+// tensors without a concatenated copy (the split sum of the pair conv). c0
+// need not be a multiple of 64 when src1 is absent (the UNet's first conv
+// has 3 input channels): the slab beyond c0 stages as zeros, and the weights
+// carry cin = c0 rounded up to 64 with zero rows there. POOL reads src0 at
 // twice the output size and stages the 2x2 max of each pixel; positions
 // outside the image stage as exact zeros, so the kernel needs no sign
-// assumption on its input.
+// assumption on its input. D2S (K = 1) reads src0 (N, 2H, 2W, cin/4) as the
+// (N, H, W, cin) map whose channel (di*2 + dj)*cin/4 + c is pixel (2y+di,
+// 2x+dj), channel c: the transposed conv's input gradient as a 1x1 conv.
 //
 // Per slab the (8+K-1) x (16+K-1) x 64 input halo is staged into shared
 // memory with zeros outside the image (16-byte cp.async copies, or through
-// registers for POOL), then Conv<T, 128> (conv_common.cuh) accumulates: bf16
-// on mma.sync.m16n8k16 with ldmatrix fragments and all K*K taps of the
-// 64 x 64 weight block staged at once, float32 on FMA one tap at a time. The
-// epilogue goes through a float32 tile in shared memory (over the dead halo
-// tile for float, over the dead weight staging for bf16), so that each warp
-// writes whole 64-channel pixel rows. Weights arrive per output block,
-// [block][tap][64 co][cin] for bf16 and [block][tap][cin][64 co] for float.
-// Shared memory: 110 KB (bf16) / 65 KB (float).
+// registers for POOL and a ragged slab), then Conv<T, 128> (conv_common.cuh)
+// accumulates: bf16 on mma.sync.m16n8k16 with ldmatrix fragments and all K*K
+// taps of the 64 x 64 weight block staged at once, float32 on FMA one tap at
+// a time. The epilogue goes through a float32 tile in shared memory (over the
+// dead halo tile for float, over the dead weight staging for bf16), so that
+// each warp writes whole 64-channel pixel rows. Weights arrive per output
+// block, [block][tap][64 co][cin] for bf16 and [block][tap][cin][64 co] for
+// float. Shared memory: 110 KB (bf16) / 65 KB (float).
 #pragma once
 
 #include "conv_common.cuh"
@@ -47,7 +55,8 @@ using namespace common;
 
 constexpr int TH = 8, TW = 16, TR = TH * TW;   // output tile
 constexpr int YT_PITCH = C + 8;                // float epilogue tile, padded
-enum Mode { RELU = 0, STATS = 1, GATE = 2, DECONV = 3, HEAD = 4 };
+enum Mode { RELU = 0, STATS = 1, GATE = 2, DECONV = 3, HEAD = 4, AFFINE = 5 };
+enum Src { DENSE = 0, POOL = 1, D2S = 2 };
 
 struct ConvArgs {
   const void* src0;
@@ -65,6 +74,8 @@ struct ConvArgs {
   const void* wout;      // HEAD: (64, ncls) [channel][class]
   const float* bout;     // HEAD: (ncls,)
   int ncls;
+  const float* scale;    // AFFINE: (cout,)
+  int relu;              // AFFINE: 1 = relu after the affine epilogue
 };
 
 template <typename T>
@@ -86,7 +97,38 @@ __device__ __forceinline__ float4 max4(float4 a, float4 b) {
   return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), fmaxf(a.w, b.w));
 }
 
-template <typename T, int K, bool POOL, int MODE>
+// Stage rows x cols pixels x 64 channels of src (cs channels per pixel, the
+// slab from channel cofs) at image position (y0, x0) into xin, with zeros
+// outside the H x W image and beyond the source's channels: 16-byte cp.async
+// copies for a whole slab, through registers for a ragged one.
+template <typename T>
+__device__ __forceinline__ void stage_slab(typename Traits<T>::S* xin, const T* src, int n,
+                                           int y0, int x0, int rows, int cols, int H, int W,
+                                           int cs, int cofs) {
+  constexpr int PITCH = Traits<T>::PITCH, V = 16 / sizeof(T);
+  const int valid = cs - cofs;   // channels of the slab the source holds
+  if (valid >= C && cs % V == 0) {
+    for (int i = threadIdx.x; i < rows * cols * (C / V); i += blockDim.x) {
+      const int q = i % (C / V), pix = i / (C / V);
+      const int Y = y0 + pix / cols, X = x0 + pix % cols;
+      const bool in = Y >= 0 && Y < H && X >= 0 && X < W;
+      cp_async16(xin + pix * PITCH + V * q,
+                 in ? src + (((size_t)n * H + Y) * W + X) * cs + cofs + V * q : src, in);
+    }
+    cp_async_wait_all();   // the caller's barrier publishes the tile
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * cols * C; i += blockDim.x) {
+    const int q = i % C, pix = i / C;
+    const int Y = y0 + pix / cols, X = x0 + pix % cols;
+    float v = 0.f;
+    if (q < valid && Y >= 0 && Y < H && X >= 0 && X < W)
+      v = to_f(src[(((size_t)n * H + Y) * W + X) * cs + cofs + q]);
+    xin[pix * PITCH + q] = from_f<T>(v);
+  }
+}
+
+template <typename T, int K, int SRC, int MODE>
 __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
   using S = typename Traits<T>::S;
   constexpr int PITCH = Traits<T>::PITCH;
@@ -110,7 +152,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
     const int cs = first ? a.c0 : a.cin - a.c0;   // channels per source pixel
     const int cofs = first ? ci0 : ci0 - a.c0;    // slab offset in the source
     __syncthreads();   // every warp is done reading the previous slab
-    if constexpr (POOL) {
+    if constexpr (SRC == POOL) {
       for (int i = threadIdx.x; i < IR * IC * (C / 4); i += THREADS) {
         const int q = i % (C / 4), pix = i / (C / 4);
         const int Y = y0 - HALO + pix / IC, X = x0 - HALO + pix % IC;
@@ -122,16 +164,19 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
         }
         store4(xin + pix * PITCH + 4 * q, v);
       }
-    } else {   // 16-byte copies straight into shared memory, zeros outside
+    } else if constexpr (SRC == D2S) {   // K = 1: no halo
       constexpr int V = 16 / sizeof(T);
-      for (int i = threadIdx.x; i < IR * IC * (C / V); i += THREADS) {
+      const int cg = a.cin / 4, par = ci0 / cg, co = ci0 % cg;
+      for (int i = threadIdx.x; i < TR * (C / V); i += THREADS) {
         const int q = i % (C / V), pix = i / (C / V);
-        const int Y = y0 - HALO + pix / IC, X = x0 - HALO + pix % IC;
-        const bool in = Y >= 0 && Y < H && X >= 0 && X < W;
-        cp_async16(xin + pix * PITCH + V * q,
-                   in ? src + (((size_t)n * H + Y) * W + X) * cs + cofs + V * q : src, in);
+        const int Y = y0 + pix / TW, X = x0 + pix % TW;
+        const bool in = Y < H && X < W;
+        const size_t o = ((size_t)n * 2 * H + 2 * Y + (par >> 1)) * 2 * W + 2 * X + (par & 1);
+        cp_async16(xin + pix * PITCH + V * q, in ? src + o * cg + co + V * q : src, in);
       }
-      cp_async_wait_all();   // the barrier in conv.run publishes the tile
+      cp_async_wait_all();
+    } else {
+      stage_slab<T>(xin, src, n, y0 - HALO, x0 - HALO, IR, IC, H, W, cs, cofs);
     }
     conv.template run<K>(xin, IC, TW, wblk, a.cin, ci0, ws);
   }
@@ -140,6 +185,10 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
   const int ncb = a.cout / C;   // DECONV: output blocks per parity
   const float* bias = a.b + (MODE == DECONV ? nb % ncb : nb) * C;
   conv.visit([&](int p, int co, float v0, float v1) {
+    if constexpr (MODE == AFFINE) {
+      v0 *= a.scale[nb * C + co];
+      v1 *= a.scale[nb * C + co + 1];
+    }
     yt[p * YT_PITCH + co] = v0 + bias[co];
     yt[p * YT_PITCH + co + 1] = v1 + bias[co + 1];
   });
@@ -159,8 +208,10 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
       o = ((size_t)n * 2 * H + 2 * Y + (par >> 1)) * 2 * W + 2 * X + (par & 1);
     } else {
       o = ((size_t)n * H + Y) * W + X;
-      v0 = fmaxf(v0, 0.f);
-      v1 = fmaxf(v1, 0.f);
+      if (MODE != AFFINE || a.relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
     }
     if constexpr (MODE == HEAD) {   // p is warp-uniform: the shuffles see every lane
       const T* wo = static_cast<const T*>(a.wout);
@@ -207,15 +258,18 @@ inline int tiles_x(int W) { return (W + TW - 1) / TW; }
 inline int tiles(int H, int W) { return tiles_x(W) * ((H + TH - 1) / TH); }
 
 // one launch of conv_kernel over N images and nblocks output blocks
-template <typename T, int K, bool POOL, int MODE>
+template <typename T, int K, int SRC, int MODE>
 cudaError_t launch(ConvArgs a, int N, int nblocks, cudaStream_t stream) {
-  if (a.cin % C || a.c0 % C || a.cout % C) return cudaErrorInvalidValue;
+  // a ragged c0 only as the sole source, with cin = c0 rounded up to 64
+  const bool ragged_ok = SRC == DENSE && a.src1 == nullptr && a.cin == (a.c0 + C - 1) / C * C;
+  if (a.cin % C || a.cout % C || (a.c0 % C && !ragged_ok)) return cudaErrorInvalidValue;
+  if (SRC == D2S && (K != 1 || a.cin % (4 * C))) return cudaErrorInvalidValue;
   a.tiles_x = tiles_x(a.W);
   constexpr size_t smem = conv_smem<T>();
-  cudaError_t err = cudaFuncSetAttribute(conv_kernel<T, K, POOL, MODE>,
+  cudaError_t err = cudaFuncSetAttribute(conv_kernel<T, K, SRC, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  conv_kernel<T, K, POOL, MODE><<<dim3(tiles(a.H, a.W), nblocks, N), THREADS, smem, stream>>>(a);
+  conv_kernel<T, K, SRC, MODE><<<dim3(tiles(a.H, a.W), nblocks, N), THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

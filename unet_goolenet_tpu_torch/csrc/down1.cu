@@ -29,10 +29,10 @@ static cudaError_t launch_down1(const void* x1, const void* w1, const float* b1,
   ConvArgs a{};
   a.src0 = x1; a.c0 = c; a.cin = c; a.w = w1; a.b = b1; a.out = h; a.cout = co;
   a.H = H; a.W = W;
-  cudaError_t err = launch<T, 3, true, RELU>(a, N, co / common::C, s);
+  cudaError_t err = launch<T, 3, POOL, RELU>(a, N, co / common::C, s);
   if (err != cudaSuccess) return err;
   a.src0 = h; a.c0 = co; a.cin = co; a.w = w2; a.b = b2; a.out = out;
-  return launch<T, 3, false, RELU>(a, N, co / common::C, s);
+  return launch<T, 3, DENSE, RELU>(a, N, co / common::C, s);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. H, W: output (= pooled) size; x1 is

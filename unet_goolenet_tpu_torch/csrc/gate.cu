@@ -51,7 +51,7 @@ static cudaError_t launch_gate(const void* x, const void* w, const float* b, voi
   ConvArgs a{};
   a.src0 = x; a.c0 = C; a.cin = C; a.w = w; a.b = b; a.out = e1; a.cout = C;
   a.H = H; a.W = W; a.psum = psum; a.pmax = pmax;
-  cudaError_t err = launch<T, 3, false, STATS>(a, N, C / common::C, s);
+  cudaError_t err = launch<T, 3, DENSE, STATS>(a, N, C / common::C, s);
   if (err != cudaSuccess) return err;
   dense_stats_kernel<<<N, 256, 0, s>>>(psum, pmax, mean, mx, tiles(H, W), C,
                                        (float)H * (float)W);

@@ -71,25 +71,25 @@ static cudaError_t launch_level(const void* x, const void* e1, const void* g1p, 
   ConvArgs a{};
   a.src0 = x; a.c0 = C; a.cin = C; a.w = wup; a.b = bup; a.out = up; a.cout = C;
   a.H = H / 2; a.W = W / 2;
-  cudaError_t err = launch<T, 1, false, DECONV>(a, N, 4 * C / B, s);
+  cudaError_t err = launch<T, 1, DENSE, DECONV>(a, N, 4 * C / B, s);
   if (err != cudaSuccess) return err;
 
   a = ConvArgs{};
   a.src0 = up; a.c0 = C; a.cin = C; a.w = wd2; a.b = bd2; a.out = gated; a.cout = C;
   a.H = H; a.W = W; a.e1 = e1; a.g1p = g1p;
-  err = launch<T, 3, false, GATE>(a, N, C / B, s);
+  err = launch<T, 3, DENSE, GATE>(a, N, C / B, s);
   if (err != cudaSuccess) return err;
 
   a = ConvArgs{};
   a.src0 = up; a.src1 = gated; a.c0 = C; a.cin = 2 * C; a.w = wpair; a.b = bpair; a.out = hh;
   a.cout = cq; a.H = H; a.W = W;
-  err = launch<T, 3, false, RELU>(a, N, cq / B, s);
+  err = launch<T, 3, DENSE, RELU>(a, N, cq / B, s);
   if (err != cudaSuccess) return err;
 
   a.src0 = hh; a.src1 = nullptr; a.c0 = cq; a.cin = cq; a.w = wblk1; a.b = bblk1; a.out = out;
-  if (ncls == 0) return launch<T, 3, false, RELU>(a, N, cq / B, s);
+  if (ncls == 0) return launch<T, 3, DENSE, RELU>(a, N, cq / B, s);
   a.wout = wout; a.bout = bout; a.ncls = ncls;
-  return launch<T, 3, false, HEAD>(a, N, 1, s);
+  return launch<T, 3, DENSE, HEAD>(a, N, 1, s);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. H, W: output (= 2x input) size; x is

@@ -10,6 +10,9 @@
   variables, given as nested dicts of numpy arrays, become a port state dict.
   HWIO -> OIHW, deconv (2, 2, Ci, Co) -> (Ci, Co, 2, 2), linear transposed,
   positional embeddings NHWC -> NCHW, `fc_out` -> `fc_avg_max_sfot`.
+* `unet_to_jax(state_dict)` maps the port's UNet state back to JAX variables
+  (numpy), so that a trained state can be compared with the JAX package's
+  leaf by leaf.
 """
 
 from __future__ import annotations
@@ -61,56 +64,104 @@ class _Out:
         self.put(f"{key}.running_var", s["var"])
         self.sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
 
-    def cbn(self, key: str, p, s) -> None:
-        self.conv(f"{key}.conv", p["conv"]["conv"])
-        self.bn(f"{key}.norm", p["norm"], s["norm"])
+
+# how a torch tensor maps onto its flax leaf: (to torch, to flax)
+_LAYOUTS = {
+    "same": (lambda a: a, lambda a: a),
+    "conv": (lambda a: np.transpose(a, (3, 2, 0, 1)), lambda a: np.transpose(a, (2, 3, 1, 0))),
+    "linear": (np.transpose, np.transpose),
+    "deconv": (lambda a: np.transpose(a, (2, 3, 0, 1)), lambda a: np.transpose(a, (2, 3, 0, 1))),
+    "pos": (lambda a: np.transpose(a, (0, 3, 1, 2)), lambda a: np.transpose(a, (0, 2, 3, 1))),
+}
+
+
+def _unet_leaves(depth: int):
+    """(torch key, flax collection, flax path, layout) of every UNet leaf."""
+    out = []
+
+    def conv(key, path, bias=True, layout="conv"):
+        out.append((f"{key}.weight", "params", (*path, "kernel"), layout))
+        if bias:
+            out.append((f"{key}.bias", "params", (*path, "bias"), "same"))
+
+    def bn(key, path):
+        out.append((f"{key}.weight", "params", (*path, "scale"), "same"))
+        out.append((f"{key}.bias", "params", (*path, "bias"), "same"))
+        out.append((f"{key}.running_mean", "batch_stats", (*path, "mean"), "same"))
+        out.append((f"{key}.running_var", "batch_stats", (*path, "var"), "same"))
+
+    def cbn(key, path):
+        conv(f"{key}.conv", (*path, "conv", "conv"))
+        bn(f"{key}.norm", (*path, "norm"))
+
+    cbn("inc", ("trunk", "inc"))
+    for i in range(1, 5):
+        for k in range(2):
+            cbn(f"down{i}.nConvs.{k}", ("trunk", f"down{i}", "nConvs", f"block{k}"))
+    for stream in ("cl", "seg"):
+        conv(f"task2.conv_{stream}.0", ("task2", f"conv_{stream}_conv", "conv"), bias=False)
+        bn(f"task2.conv_{stream}.1", ("task2", f"conv_{stream}_bn"))
+        out.append((f"task2.pos_embedding_decoder_{stream}", "params",
+                    ("task2", f"pos_embedding_{stream}"), "pos"))
+    for k in range(depth):
+        pre, lp = f"task2.layers.{k}", ("task2", f"layer{k}")
+        for att in ("attention1", "attention2"):
+            conv(f"{pre}.{att}.to_qkv", (*lp, att, "to_qkv"), bias=False, layout="linear")
+            conv(f"{pre}.{att}.to_out.0", (*lp, att, "to_out"), layout="linear")
+        for nm in ("to_q", "to_k", "to_v"):
+            conv(f"{pre}.cross_attention_cl.{nm}", (*lp, "cross_attention_cl", nm), bias=False,
+                 layout="linear")
+        conv(f"{pre}.cross_attention_cl.to_out.0", (*lp, "cross_attention_cl", "to_out"),
+             layout="linear")
+        for nm in ("x_att_norm", "m_att_norm", "x_mlp_norm", "m_mlp_norm"):
+            out.append((f"{pre}.{nm}.weight", "params", (*lp, nm, "scale"), "same"))
+            out.append((f"{pre}.{nm}.bias", "params", (*lp, nm, "bias"), "same"))
+        for ff in ("x_feed", "m_feed"):
+            conv(f"{pre}.{ff}.net.0", (*lp, ff, "fc1"), layout="linear")
+            conv(f"{pre}.{ff}.net.3", (*lp, ff, "fc2"), layout="linear")
+    for i in range(1, 5):
+        u = f"up{i}"
+        conv(f"{u}.up", (u, "up"), layout="deconv")
+        for e in ("conv1_e", "conv2_e"):
+            cbn(f"{u}.cca.{e}.0", (u, "cca", e, "block0"))
+        conv(f"{u}.cca.fc_avg", (u, "cca", "fc_avg", "conv"))
+        conv(f"{u}.cca.fc_max", (u, "cca", "fc_max", "conv"))
+        conv(f"{u}.cca.fc_avg_max_sfot", (u, "cca", "fc_out", "conv"))
+        for k in range(2):
+            cbn(f"{u}.nConvs.{k}", (u, "nConvs", f"block{k}"))
+    conv("outc", ("outc", "conv"))
+    return out
 
 
 def unet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX UNetTaskAligWeight variables -> port UNetTaskAligWeight state dict."""
-    o = _Out(variables)
-    p, s = o.p, o.s
-    o.cbn("inc", p["trunk"]["inc"], s["trunk"]["inc"])
-    for i in range(1, 5):
-        d, ds = p["trunk"][f"down{i}"]["nConvs"], s["trunk"][f"down{i}"]["nConvs"]
-        for k in range(2):
-            o.cbn(f"down{i}.nConvs.{k}", d[f"block{k}"], ds[f"block{k}"])
-    t, ts = p["task2"], s["task2"]
-    for stream in ("cl", "seg"):
-        o.conv(f"task2.conv_{stream}.0", t[f"conv_{stream}_conv"]["conv"], bias=False)
-        o.bn(f"task2.conv_{stream}.1", t[f"conv_{stream}_bn"], ts[f"conv_{stream}_bn"])
-        o.put(f"task2.pos_embedding_decoder_{stream}",
-              np.transpose(t[f"pos_embedding_{stream}"], (0, 3, 1, 2)))
-    k = 0
-    while f"layer{k}" in t:
-        lp, pre = t[f"layer{k}"], f"task2.layers.{k}"
-        for att in ("attention1", "attention2"):
-            o.linear(f"{pre}.{att}.to_qkv", lp[att]["to_qkv"], bias=False)
-            o.linear(f"{pre}.{att}.to_out.0", lp[att]["to_out"])
-        for nm in ("to_q", "to_k", "to_v"):
-            o.linear(f"{pre}.cross_attention_cl.{nm}", lp["cross_attention_cl"][nm], bias=False)
-        o.linear(f"{pre}.cross_attention_cl.to_out.0", lp["cross_attention_cl"]["to_out"])
-        for nm in ("x_att_norm", "m_att_norm", "x_mlp_norm", "m_mlp_norm"):
-            o.put(f"{pre}.{nm}.weight", lp[nm]["scale"])
-            o.put(f"{pre}.{nm}.bias", lp[nm]["bias"])
-        for ff in ("x_feed", "m_feed"):
-            o.linear(f"{pre}.{ff}.net.0", lp[ff]["fc1"])
-            o.linear(f"{pre}.{ff}.net.3", lp[ff]["fc2"])
-        k += 1
-    for i in range(1, 5):
-        u, us = p[f"up{i}"], s[f"up{i}"]
-        o.put(f"up{i}.up.weight", np.transpose(u["up"]["kernel"], (2, 3, 0, 1)))
-        o.put(f"up{i}.up.bias", u["up"]["bias"])
-        c, cs = u["cca"], us["cca"]
-        o.cbn(f"up{i}.cca.conv1_e.0", c["conv1_e"]["block0"], cs["conv1_e"]["block0"])
-        o.cbn(f"up{i}.cca.conv2_e.0", c["conv2_e"]["block0"], cs["conv2_e"]["block0"])
-        o.conv(f"up{i}.cca.fc_avg", c["fc_avg"]["conv"])
-        o.conv(f"up{i}.cca.fc_max", c["fc_max"]["conv"])
-        o.conv(f"up{i}.cca.fc_avg_max_sfot", c["fc_out"]["conv"])
-        for k in range(2):
-            o.cbn(f"up{i}.nConvs.{k}", u["nConvs"][f"block{k}"], us["nConvs"][f"block{k}"])
-    o.conv("outc", p["outc"]["conv"])
-    return o.sd
+    depth = 0
+    while f"layer{depth}" in variables["params"]["task2"]:
+        depth += 1
+    sd: Dict[str, torch.Tensor] = {}
+    for key, coll, path, layout in _unet_leaves(depth):
+        node = variables[coll]
+        for name in path:
+            node = node[name]
+        sd[key] = torch.tensor(_LAYOUTS[layout][0](np.asarray(node, np.float32)))
+        if key.endswith(".running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def unet_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Port UNetTaskAligWeight state dict -> JAX variables {"params",
+    "batch_stats"} as nested dicts of float32 numpy arrays (the inverse of
+    `unet_from_jax`), so that a state can be compared leaf by leaf."""
+    depth = len({k.split(".")[2] for k in state_dict if k.startswith("task2.layers.")})
+    variables: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, coll, path, layout in _unet_leaves(depth):
+        node = variables[coll]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        arr = state_dict[key].detach().cpu().float().numpy()
+        node[path[-1]] = np.ascontiguousarray(_LAYOUTS[layout][1](arr))
+    return variables
 
 
 def gnet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -6,7 +6,10 @@ only the seg stream feeds the decoder. The reference also declares fc1/fc2 it
 never calls; they are not declared here (their keys are dropped on load).
 
 forward takes and returns NHWC like the JAX model; inside, the modules run
-NCHW views in channels_last memory.
+NCHW views in channels_last memory. `kernels=True` puts every 3x3 conv
+that feeds a BatchNorm (27 a forward), the four transposed convs and the
+four pools on the CUDA kernels of `ops/kernels/conv.py` (nn/blocks.py says
+how, in train and eval mode); it changes no parameter name.
 """
 
 from __future__ import annotations
@@ -24,20 +27,20 @@ class UNetTaskAligWeight(nn.Module):
     """img_size sets the positional embeddings' side (img_size // 16, the
     bottleneck's); the reference's checkpoints are 224-only (14 x 14)."""
 
-    def __init__(self, n_classes: int = 1, img_size: int = 224):
+    def __init__(self, n_classes: int = 1, img_size: int = 224, kernels: bool = False):
         super().__init__()
-        c = BASE
-        self.inc = ConvBatchNorm(3, c)
-        self.down1 = DownBlock(c, 2 * c)
-        self.down2 = DownBlock(2 * c, 4 * c)
-        self.down3 = DownBlock(4 * c, 8 * c)
-        self.down4 = DownBlock(8 * c, 8 * c)
+        c, k = BASE, kernels
+        self.inc = ConvBatchNorm(3, c, k)
+        self.down1 = DownBlock(c, 2 * c, k)
+        self.down2 = DownBlock(2 * c, 4 * c, k)
+        self.down3 = DownBlock(4 * c, 8 * c, k)
+        self.down4 = DownBlock(8 * c, 8 * c, k)
         self.task2 = TransformerDecoder(dim=8 * c, depth=1, heads=8, dim_head=64,
-                                        mlp_dim=2048, pos_size=img_size // 16)
-        self.up4 = UpBlockAlig(8 * c, 4 * c)
-        self.up3 = UpBlockAlig(4 * c, 2 * c)
-        self.up2 = UpBlockAlig(2 * c, c)
-        self.up1 = UpBlockAlig(c, c)
+                                        mlp_dim=2048, pos_size=img_size // 16, kernels=k)
+        self.up4 = UpBlockAlig(8 * c, 4 * c, k)
+        self.up3 = UpBlockAlig(4 * c, 2 * c, k)
+        self.up2 = UpBlockAlig(2 * c, c, k)
+        self.up1 = UpBlockAlig(c, c, k)
         self.outc = nn.Conv2d(c, n_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

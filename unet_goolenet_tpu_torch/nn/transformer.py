@@ -8,7 +8,9 @@ reference's parameter names (`to_qkv`, `to_out.0`, `net.0`/`net.3`,
     `cross_attention_seg` is never called, so it is not declared here;
   * exact (erf) GELU, LayerNorm eps 1e-5;
   * the positional embeddings are sized by the bottleneck (`pos_size`).
-Attention is a plain matmul + float32 softmax.
+Attention is a plain matmul + float32 softmax. The two Conv2dReLU
+projections train with flax's BatchNorm and run on the conv kernel with
+`kernels=True`, as the UNet's ConvBatchNorm blocks do (nn/blocks.py).
 """
 
 from __future__ import annotations
@@ -18,15 +20,19 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from unet_goolenet_tpu_torch.nn.blocks import conv_bn_relu
+
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
            scale: float) -> torch.Tensor:
-    """(B, N, H*D) q, k, v -> (B, N, H*D); logits and softmax in float32."""
+    """(B, N, H*D) q, k, v -> (B, N, H*D); logits and softmax in float32 (or
+    float64)."""
     b, n, hd = q.shape
     d = hd // heads
     split = lambda t: t.reshape(b, -1, heads, d).transpose(1, 2)
     qh, kh, vh = split(q), split(k), split(v)
-    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    wide = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul(qh.to(wide), kh.to(wide).transpose(-1, -2)) * scale
     attn = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.matmul(attn, vh)
     return out.transpose(1, 2).reshape(b, n, hd)
@@ -105,8 +111,10 @@ class TransformerDecoder(nn.Module):
     NCHW. Returns (x stream, m stream)."""
 
     def __init__(self, dim: int = 512, depth: int = 1, heads: int = 8,
-                 dim_head: int = 64, mlp_dim: int = 2048, pos_size: int = 14):
+                 dim_head: int = 64, mlp_dim: int = 2048, pos_size: int = 14,
+                 kernels: bool = False):
         super().__init__()
+        self.kernels = kernels
         self.conv_cl = conv_relu(dim)
         self.conv_seg = conv_relu(dim)
         self.pos_embedding_decoder_cl = nn.Parameter(torch.zeros(1, dim, pos_size, pos_size))
@@ -116,8 +124,8 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         n, c, h, w = x.shape
-        x = self.conv_cl(x) + self.pos_embedding_decoder_cl
-        m = self.conv_seg(m) + self.pos_embedding_decoder_seg
+        x = conv_bn_relu(*self.conv_cl[:2], x, self.kernels) + self.pos_embedding_decoder_cl
+        m = conv_bn_relu(*self.conv_seg[:2], m, self.kernels) + self.pos_embedding_decoder_seg
         x = x.flatten(2).transpose(1, 2)
         m = m.flatten(2).transpose(1, 2)
         for layer in self.layers:

@@ -38,9 +38,16 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, or in its own dtype if that is wider (float64, which
+    the CPU tests use to hold the plain versions against the JAX package
+    beyond float32's rounding)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Round to `dtype` and compute on in float32."""
-    return t.to(dtype).float()
+    """Round to `dtype` and compute on in float32 (or float64 for float64)."""
+    return wide(t.to(dtype))
 
 
 def check(name: str, t: torch.Tensor, shape, dtype) -> None:
@@ -60,16 +67,6 @@ def dtype_code(name: str, t: torch.Tensor) -> int:
     return DTYPE_CODE[t.dtype]
 
 
-def taps(w: torch.Tensor, dtype) -> torch.Tensor:
-    """OIHW (Co, Ci, k, k) -> per-tap blocks in the kernel's dtype and layout:
-    (k*k, Co, Ci) for bf16 (tensor-core B operand), (k*k, Ci, Co) for
-    float32 (FMA)."""
-    co, ci, kh, kw = w.shape
-    if dtype == torch.bfloat16:
-        return w.to(dtype).permute(2, 3, 0, 1).reshape(kh * kw, co, ci).contiguous()
-    return w.to(dtype).permute(2, 3, 1, 0).reshape(kh * kw, ci, co).contiguous()
-
-
 def check_blocks(*ws: torch.Tensor) -> None:
     """The dense kernels take output channels in blocks of 64."""
     for w in ws:
@@ -79,11 +76,15 @@ def check_blocks(*ws: torch.Tensor) -> None:
 
 
 def blocked_taps(w: torch.Tensor, dtype) -> torch.Tensor:
-    """OIHW (Co, Ci, k, k), Co a multiple of 64 -> `taps` of each block of 64
-    output channels: (Co/64, k*k, 64, Ci) for bf16, (Co/64, k*k, Ci, 64) for
-    float32, the layout of csrc/dense_conv.cuh."""
+    """OIHW (Co, Ci, k, k), Co a multiple of 64 -> per-tap blocks of 64
+    output channels in `dtype`: (Co/64, k*k, 64, Ci) for bf16 (the
+    tensor-core B operand), (Co/64, k*k, Ci, 64) for float32 (FMA), the
+    layout of csrc/dense_conv.cuh. One permute and copy, since the trainer
+    lays its weights out at every call."""
     check_blocks(w)
-    return torch.stack([taps(blk, dtype) for blk in w.split(BLOCK)])
+    co, ci, kh, kw = w.shape
+    v = w.to(dtype).reshape(co // BLOCK, BLOCK, ci, kh * kw)
+    return (v.permute(0, 3, 1, 2) if dtype == torch.bfloat16 else v.permute(0, 3, 2, 1)).contiguous()
 
 
 def blocked_shape(co: int, ci: int, k: int, dtype) -> tuple:
