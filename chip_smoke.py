@@ -37,11 +37,16 @@ Phases, one line each (the first failure exits non-zero):
      all-fused bf16 batch-64 call (device busy vs wall, host syncs, top
      kernels).
   7. training kernels: kernels 6-9 (fused conv3x3 forward, its dx through
-     the same kernel and its split-K dw; the conv-stack pair; the 2x2
+     the same kernel and its weight gradient; the conv-stack pair; the 2x2
      transposed conv, its dx and dW/db; the 2x2 max pool and its backward)
      against their plain versions in float32 (TF32 off) and bfloat16, at
      every conv, pair, deconv and pool shape of the trainer at batch 4 and
-     224^2, at a ragged 20x28 level and at cin = 3 on a ragged 36x52 image.
+     224^2, and at the edges of the weight-gradient plan at batch 2: a
+     ragged 20x28 level, cin = 3 on a ragged 36x52 image, 14x14 512->512
+     (not split) and 28x28 1024->256 (the widest). conv3x3_dw and
+     deconv2x2_dwdb run twice on the same inputs and must give the same
+     bits, and are held, as their plain versions are measured, against the
+     plain version in float64.
   8. training, the main path of this slice: 12 seeded PNGs (8 train, 4 val,
      400x500 with a lesion mask) through `apps.train_seg.main --kernels`
      for two epochs in bf16; every new kernel's counter, set to 0 just
@@ -59,7 +64,9 @@ Phases, one line each (the first failure exits non-zero):
      (device busy, idle share, launches); each training kernel at the
      trainer's shapes against its plain version and the cuDNN call for the
      same work (F.conv2d, conv2d_input, conv2d_weight, conv_transpose2d and
-     its gradients, max_pool2d and its backward), with its bound: device
+     its gradients, max_pool2d and its backward; the dW/db's yardstick is
+     conv2d_weight and the sum of the output gradient for db), with its
+     bound and, for the weight gradients, the plan's partial bytes: device
      time, all of it from one profiler trace (the steps are host-bound, so
      CUDA events around back-to-back calls measure the host), and the wall
      time beside.
@@ -816,8 +823,9 @@ def phase_timing(dev, errs, launches, train_errs, train_launches) -> list:
 class TCase(NamedTuple):
     """One training-kernel call at one shape: the wrapper's call, its plain
     version, the cuDNN call for the same work (or None), the work (flops,
-    bytes: each input read once, each output written once) and the calls of
-    this shape in one forward + backward pass of the train step."""
+    bytes: each input read once, each output written once), the calls of
+    this shape in one forward + backward pass of the train step, and for a
+    weight gradient its launch's plan (ops/kernels/conv.py:wgrad_plan)."""
     name: str
     label: str
     kern: Callable
@@ -826,6 +834,7 @@ class TCase(NamedTuple):
     flops: float
     nbytes: float
     per_pass: int
+    plan: object = None
 
     def bound(self, dtype) -> Tuple[float, str]:
         return bound_of(self.flops, self.nbytes, dtype)
@@ -851,13 +860,15 @@ def conv_cases(n, h, w, cin, cout, per_pass, dtype, dev, seed, dx=True) -> list:
     wl, bl = wt.to(dtype), b.to(dtype)
     px, label = n * h * w, f"{n}x{h}x{w} {cin}->{cout}"
     flops, es = 18.0 * px * cin * cout, torch.finfo(dtype).bits / 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [TCase("fused_conv3x3", label, partial(K.fused_conv3x3, x, wt, one, b, False),
                    partial(K.fused_conv3x3_ref, x, wt, one, b, False),
                    lambda: F.conv2d(_nchw(x), wl, bl, padding=1), flops,
                    es * (x.numel() + wt.numel() + px * cout) + 8.0 * cout, per_pass),
              TCase("conv3x3_dw", label, partial(K.conv3x3_dw, x, gy), partial(K.conv3x3_dw_ref, x, gy),
                    lambda: torch.nn.grad.conv2d_weight(_nchw(x), wt.shape, _nchw(gy), padding=1),
-                   flops, es * (x.numel() + gy.numel()) + 4.0 * wt.numel(), per_pass)]
+                   flops, es * (x.numel() + gy.numel()) + 4.0 * wt.numel(), per_pass,
+                   K.wgrad_plan(9, n, h, w, cin, cout, dtype, sms))]
     if dx and cin % 64 == 0:
         cases.append(TCase("fused_conv3x3", f"dx {label}",
                            partial(K.fused_conv3x3, gy, w_rot, onei, zeroi, False),
@@ -894,6 +905,7 @@ def deconv_cases(n, h, w, c, dtype, dev, seed) -> list:
     gy = r(n, 2 * h, 2 * w, c, sc=1e-3).to(dtype)
     wl, bl = wt.to(dtype), b.to(dtype)
     flops, es, label = 8.0 * n * h * w * c * c, torch.finfo(dtype).bits / 8, f"{n}x{h}x{w}x{c}"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return [
         TCase("deconv2x2", label, partial(K.deconv2x2, x, wt, b), partial(K.deconv2x2_ref, x, wt, b),
               lambda: F.conv_transpose2d(_nchw(x), wl, bl, stride=2), flops,
@@ -903,8 +915,10 @@ def deconv_cases(n, h, w, c, dtype, dev, seed) -> list:
               flops, es * (gy.numel() + wt.numel() + x.numel()), 1),
         TCase("deconv2x2_dwdb", label, partial(K.deconv2x2_dwdb, x, gy),
               partial(K.deconv2x2_dwdb_ref, x, gy),
-              lambda: torch.nn.grad.conv2d_weight(_nchw(gy), wt.shape, _nchw(x), stride=2),
-              flops + 1.0 * gy.numel(), es * (x.numel() + gy.numel()) + 4.0 * (wt.numel() + c), 1),
+              lambda: (torch.nn.grad.conv2d_weight(_nchw(gy), wt.shape, _nchw(x), stride=2),
+                       gy.sum((0, 1, 2))),
+              flops + 1.0 * gy.numel(), es * (x.numel() + gy.numel()) + 4.0 * (wt.numel() + c), 1,
+              K.wgrad_plan(1, n, h, w, c, c, dtype, sms)),
     ]
 
 
@@ -930,10 +944,14 @@ def pool_cases(n, h, w, c, dtype, dev, seed) -> list:
 
 def train_cases(n, dtype, dev, seed, ragged=False) -> list:
     """Every training kernel at the trainer's shapes for n images at 224^2,
-    or at a ragged 20x28 level and cin = 3 on a ragged 36x52 image."""
+    or at the edges: a ragged 20x28 level, cin = 3 on a ragged 36x52 image,
+    and for the weight-gradient plan 14x14 512->512 (one chunk) and 28x28
+    1024->256 (the most output tiles)."""
     if ragged:
         return (conv_cases(n, 20, 28, 128, 64, 1, dtype, dev, seed)
                 + conv_cases(n, 36, 52, 3, 64, 1, dtype, dev, seed + 1)
+                + conv_cases(n, 14, 14, 512, 512, 1, dtype, dev, seed + 5, dx=False)
+                + conv_cases(n, 28, 28, 1024, 256, 1, dtype, dev, seed + 6, dx=False)
                 + pair_cases(n, 20, 128, 64, dtype, dev, seed + 2)
                 + deconv_cases(n, 10, 14, 128, dtype, dev, seed + 3)
                 + pool_cases(n, 20, 28, 64, dtype, dev, seed + 4))
@@ -949,17 +967,41 @@ def train_cases(n, dtype, dev, seed, ragged=False) -> list:
     return cases
 
 
+REPEATED = ("conv3x3_dw", "deconv2x2_dwdb")   # deterministic by design: held to bitwise repeats
+
+
+def _tup(t) -> tuple:
+    return t if isinstance(t, tuple) else (t,)
+
+
 def phase_train_kernels(dev) -> dict:
-    """Each training kernel against its plain version; returns the bf16
-    main-shape max |error| per kernel."""
+    """Each training kernel against its plain version, the weight
+    gradients also against a second call; returns the bf16 main-shape max
+    |error| per kernel."""
     errs = {}
     for n, ragged in ((4, False), (2, True)):
         for dtype in (torch.float32, torch.bfloat16):
-            worst = {}
+            worst, repeats, f64 = {}, 0, {}
             for case in train_cases(n, dtype, dev, SEED + 11 + ragged, ragged):
                 out, ref = case.kern(), case.plain()
+                if case.name in REPEATED:
+                    again = case.kern()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(*map(_tup, (out, again)))):
+                        fail(f"{case.name} {dtype} {case.label}: two calls on the same inputs "
+                             f"differ")
+                    repeats += 1
+                    # both against the plain version run in float64 on the same inputs
+                    truth = case.plain.func(*(t.double() for t in case.plain.args))
+                    for what, got in (("kernel", out), ("plain", ref)):
+                        e = max((g.double() - t).abs().max().item() / t.abs().max().item()
+                                for g, t in zip(_tup(got), _tup(truth)))
+                        f64[case.name, what] = max(f64.get((case.name, what), 0.0), e)
+                    if f64[case.name, "kernel"] > KERNEL_TOL[dtype]:
+                        fail(f"{case.name} {dtype} {case.label}: {f64[case.name, 'kernel']:.3e} "
+                             f"from float64")
                 torch.cuda.synchronize()
-                for g, r in zip(*(t if isinstance(t, tuple) else (t,) for t in (out, ref))):
+                for g, r in zip(*map(_tup, (out, ref))):
                     g, r = g.float(), r.float()
                     if g.shape != r.shape or not torch.isfinite(g).all():
                         fail(f"{case.name} {dtype} {case.label}: shape or non-finite values")
@@ -972,11 +1014,18 @@ def phase_train_kernels(dev) -> dict:
                     worst[case.name] = (max(a, err), max(w, rel))
             for name, (a, w) in worst.items():
                 say("kernel", name=name, dtype=dname(dtype),
-                    shapes="ragged 20x28, cin 3 at 36x52" if ragged else "trainer, batch 4, 224^2",
+                    shapes=("edges: ragged 20x28, cin 3 at 36x52, 14x14 512->512, "
+                            "28x28 1024->256" if ragged else "trainer, batch 4, 224^2"),
                     max_abs_err=f"{a:.3e}", max_rel_err=f"{w:.3e}", tol=f"{KERNEL_TOL[dtype]:.0e}",
                     ok=True)
                 if not ragged and dtype == torch.bfloat16:
                     errs[name] = a
+            say("kernel", check="weight gradients called twice", dtype=dname(dtype),
+                cases=repeats, bitwise_equal=True)
+            for name in REPEATED:
+                say("kernel", check="max |error| against float64 / max |value|", name=name,
+                    dtype=dname(dtype), kernel=f"{f64[name, 'kernel']:.3e}",
+                    plain=f"{f64[name, 'plain']:.3e}")
     return errs
 
 
@@ -1205,16 +1254,23 @@ def time_train(dev) -> dict:
             if case.library:
                 fns[f"{dname(dtype)} {i} library"] = case.library
     ms = trace_device_ms(fns)
+    for name in REPEATED:   # the float32 partials one pass writes
+        for dtype, cs in cases.items():
+            mb = sum(c.per_pass * c.plan.partial_bytes for c in cs if c.name == name) / 1e6
+            say("timing", what=f"{name}_partials_per_pass", dtype=dname(dtype), batch=4, img=224,
+                partial_mb=f"{mb:.3f}")
     for dtype, cs in cases.items():
         for i, case in enumerate(cs):
             km, pm = ms[f"{dname(dtype)} {i} kernel"], ms[f"{dname(dtype)} {i} plain"]
             lm = ms.get(f"{dname(dtype)} {i} library")
             bound, by = case.bound(dtype)
+            plan = {} if case.plan is None else dict(
+                chunks=case.plan.chunks, partial_mb=f"{case.plan.partial_bytes / 1e6:.3f}")
             say("timing", what=case.name, shape=repr(case.label), dtype=dname(dtype), batch=4,
                 device_ms=f"{km:.4f}", plain_device_ms=f"{pm:.4f}",
                 library_device_ms="null" if lm is None else f"{lm:.4f}",
                 wall_ms=f"{cuda_ms(case.kern, 5):.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
-                share_of_bound=f"{bound / km:.3f}", calls_per_pass=case.per_pass)
+                share_of_bound=f"{bound / km:.3f}", calls_per_pass=case.per_pass, **plan)
             if dtype == torch.bfloat16:
                 a, w = agg[case.name], max(case.per_pass, 1)
                 a["ms"] += w * km

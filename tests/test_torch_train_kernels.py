@@ -11,11 +11,19 @@ for the conv, a multi-tile deconv, exact ties in the pool). Gradients are
 taken of sum(f(x) * c) for a seeded cotangent c on both sides. Tolerance:
 1e-4 of the reference's max |value| in float32, for values and gradients.
 
+The weight-gradient kernels' plan (`wgrad_plan`) is plain Python, held here
+at the trainer's 16 conv and 4 deconv shapes: every output tile of every
+item is computed by exactly one block, the partial scratch is what the
+blocks write, and one pass writes at most 0.5 GB of partials.
+
 On a GPU host without JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_train_kernels.py`. There each kernel, forward and every
 backward, is held to its plain version at 1e-4 (float32, TF32 off) and 2e-2
-(bfloat16) of the plain result's max |value|, at ragged sizes and cin = 3.
+(bfloat16) of the plain result's max |value|, at ragged sizes, cin = 3 and
+the plan's edges, and the weight gradients to a second call bit for bit.
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -154,6 +162,69 @@ def test_cpu_wrappers_take_the_plain_versions():
     assert wg.grad is not None and x.grad is None
 
 
+# ------------------------------------------------------------------ the weight-gradient plan
+
+SMS = 132   # an H100 SXM's SMs
+# the trainer's 3x3 convs (size, cin, cout, calls per pass) and transposed
+# convs (input size, C) at batch 4 and 224^2, as chip_smoke.py drives them
+TRAIN_CONVS = ((224, 3, 64, 1), (112, 64, 128, 1), (112, 128, 128, 3), (56, 128, 256, 1),
+               (56, 256, 256, 3), (28, 256, 512, 1), (28, 512, 512, 3), (14, 512, 512, 4),
+               (28, 1024, 256, 1), (28, 256, 256, 1), (56, 512, 128, 1), (56, 128, 128, 1),
+               (112, 256, 64, 1), (112, 64, 64, 1), (224, 64, 64, 3), (224, 128, 64, 1))
+TRAIN_DECONVS = ((14, 512), (28, 256), (56, 128), (112, 64))
+
+
+def tile_floats(plan, mt: int, cin: int) -> int:
+    """Floats the kernel's epilogue writes for an output tile in input-channel
+    block mt (csrc/conv_dw.cuh): its dw rows, and for the deconv's first
+    block its 32 db columns."""
+    if plan.taps == 9:
+        return min(64, cin - 64 * mt) * 9 * 64
+    return 64 * 128 + (32 if mt == 0 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("taps,h,cin,cout", [(9, h, ci, co) for h, ci, co, _ in TRAIN_CONVS]
+                         + [(1, h, c, c) for h, c in TRAIN_DECONVS])
+def test_wgrad_plan_covers_every_tile_once(taps, h, cin, cout, dtype):
+    n = 4
+    plan = K.wgrad_plan(taps, n, h, h, cin, cout, dtype, SMS)
+    if taps == 9:
+        rows, cols = plan.tile
+        assert plan.items == n * -(-h // rows) * -(-h // cols)
+        assert plan.out_elems == 9 * cin * cout
+    else:
+        assert plan.items == -(-n * h * h // K.DW_STEP)
+        assert plan.out_elems == 4 * cin * cout + cout
+    seen, written = Counter(), 0
+    for chunk, mt, nt, first, count in plan.blocks():
+        assert 1 <= count <= plan.per_chunk
+        seen.update((item, mt, nt) for item in range(first, first + count))
+        written += tile_floats(plan, mt, cin)
+    assert set(seen.values()) == {1}
+    assert len(seen) == plan.items * plan.mtiles * plan.ntiles
+    assert written == plan.chunks * plan.out_elems   # each chunk yields the whole result once
+    # only a grid reduce puts the chunks' results in scratch; a cluster sums them on chip
+    assert plan.partial_elems == (written if plan.reduce == "grid" else 0)
+    assert plan.reduce == ("one" if plan.chunks == 1 else
+                           "cluster" if plan.chunks <= K.MAX_CLUSTER else "grid")
+    if plan.chunks > 1:   # the grid barrier needs every block resident: one per SM
+        assert plan.grid <= SMS and plan.per_chunk >= K.DW_MIN_ITEMS
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_wgrad_plan_partials_of_a_pass(dtype):
+    """One forward + backward pass's 27 conv dw calls write at most 0.5 GB
+    of float32 partials (the single-buffered kernel's plan wrote 1.05 GB);
+    each level gets the tile that wastes least."""
+    total = sum(k * K.wgrad_plan(9, 4, h, h, ci, co, dtype, SMS).partial_bytes
+                for h, ci, co, k in TRAIN_CONVS)
+    assert total <= 0.5e9, total
+    tiles = {torch.bfloat16: [(8, 16), (8, 16), (8, 16), (4, 32), (8, 16)],
+             torch.float32: [(8, 16), (8, 16), (4, 28), (4, 28), (7, 14)]}[dtype]
+    assert [K.dw_tile(h, h, dtype) for h in (224, 112, 56, 28, 14)] == tiles
+
+
 # ------------------------------------------------------------------ on the card
 
 
@@ -192,15 +263,21 @@ def counted(fn, *args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,cin,cout", [(2, 20, 28, 64, 128), (2, 16, 24, 3, 64),
-                                            (1, 9, 13, 128, 64)])
+                                            (1, 9, 13, 128, 64), (4, 14, 14, 512, 512),
+                                            (2, 28, 28, 1024, 256)])
 def test_conv3x3_kernels_match_plain(cuda, dtype, n, h, w, cin, cout):
+    """Ragged levels, cin = 3, and the weight-gradient plan's edges: 14x14
+    512->512 in one chunk, 28x28 1024->256 with the most output tiles; the
+    weight gradient repeats bit for bit."""
     r = on_card(cuda, dtype, 6)
     x, wt = r(n, h, w, cin).to(dtype), r(cout, cin, 3, 3, sc=(9 * cin) ** -0.5)
     s, b, g = r(cout).abs() + 0.5, r(cout, sc=0.1), r(n, h, w, cout).to(dtype)
     for relu in (True, False):
         agrees(counted(K.fused_conv3x3, x, wt, s, b, relu), K.fused_conv3x3_ref(x, wt, s, b, relu),
                dtype)
-    agrees(counted(K.conv3x3_dw, x, g), K.conv3x3_dw_ref(x, g), dtype)
+    dw = counted(K.conv3x3_dw, x, g)
+    agrees(dw, K.conv3x3_dw_ref(x, g), dtype)
+    assert torch.equal(dw, K.conv3x3_dw(x, g))
 
 
 @pytest.mark.cuda
@@ -223,8 +300,10 @@ def test_deconv_kernels_match_plain(cuda, dtype, n, h, w, c):
     g = r(n, 2 * h, 2 * w, c).to(dtype)
     agrees(counted(K.deconv2x2, x, wt, b), K.deconv2x2_ref(x, wt, b), dtype)
     agrees(counted(K.deconv2x2_dx, g, wt), K.deconv2x2_dx_ref(g, wt), dtype)
-    for got, ref in zip(counted(K.deconv2x2_dwdb, x, g), K.deconv2x2_dwdb_ref(x, g)):
+    dwdb = counted(K.deconv2x2_dwdb, x, g)
+    for got, ref, again in zip(dwdb, K.deconv2x2_dwdb_ref(x, g), K.deconv2x2_dwdb(x, g)):
         agrees(got, ref, dtype)
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

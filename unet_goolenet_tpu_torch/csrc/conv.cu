@@ -15,8 +15,13 @@
 // (out = acc * scale + bias, then relu if asked). cin may be any count (the
 // UNet's first conv has 3): the kernel stages the slab beyond cin as zeros
 // and the host pads the weights' cin to 64 with zeros; cout is a multiple
-// of 64. dw: conv_dw.cuh's split-K kernel with K = 3, then its chunk-order
-// reduce straight into torch's (cout, cin, 3, 3).
+// of 64. dw: one launch of conv_dw.cuh's wgrad_kernel with K = 3 (bf16: TMA
+// boxes into a 4-stage ring and wgmma, 3 warpgroups of 3 taps; float32: a
+// cp.async ring and FMA; a pixel tile fitted to the level's width; the
+// pixels split into chunks by ops/kernels/conv.py:wgrad_plan and the chunks
+// summed in a fixed order inside the same launch), written straight into
+// torch's (cout, cin, 3, 3); the host pads a ragged x (cin = 3) to 8
+// channels.
 //
 // The pair: two AFFINE launches with relu, the intermediate (N, H, W, cmid)
 // through device memory (mostly L2), as pool + down1 (down1.cu) does. On
@@ -27,8 +32,9 @@
 // Bound on an H100: the 3x3 conv's 18 * cin * cout FLOP a pixel on the bf16
 // tensor cores (989 TFLOP/s) or float32 FMA (67 TFLOP/s) against x, w and y
 // once through memory (3.35 TB/s): at 224^2 and batch 4, 64 -> 64 is 14.8
-// GFLOP against 51 MB in bf16, ~0.015 ms either way; chip_smoke.py computes
-// each shape's bound.
+// GFLOP against 51 MB in bf16, ~0.015 ms either way; dw does the same
+// operations against x and g (bounds of the whole pass: conv_dw.cuh);
+// chip_smoke.py computes each shape's bound.
 #include "conv_dw.cuh"
 
 template <typename T>
@@ -68,21 +74,38 @@ extern "C" int convstack2_launch(int dtype, const void* x, const void* w1, const
   return conv3x3_launch(dtype, mid, w2, s2, b2, out, N, H, W, cmid, cout, 1, stream);
 }
 
-// dw (cout, cin, 3, 3) float32 of x (N, H, W, cin) and gc (N, H, W, cout);
-// part (chunks, 9, cin64, cout) float32 scratch, chunks * per_chunk >= N *
-// dw_tiles(H, W).
-extern "C" int conv3x3_dw_launch(int dtype, const void* x, const void* g, float* part, float* dw,
-                                 int N, int H, int W, int cin, int cout, int chunks,
-                                 int per_chunk, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return wgrad::launch_dw<float, 3, false>(x, g, part, nullptr, dw, nullptr, N, H, W, cin,
-                                             cout, chunks, per_chunk, s);
-  if (dtype == 1)
-    return wgrad::launch_dw<__nv_bfloat16, 3, false>(x, g, part, nullptr, dw, nullptr, N, H, W,
-                                                     cin, cout, chunks, per_chunk, s);
-  return (int)cudaErrorInvalidValue;
+// dw (cout, cin, 3, 3) float32 of x (N, H, W, cx), cx >= cin a multiple of
+// 8 (zeros beyond cin), and gc (N, H, W, cout); tw (the pixel tile's width:
+// 16 or 32 for bf16, 16, 28 or 14 for float32), chunks, per_chunk and
+// reduce (0 one chunk, 1 a cluster, 2 the grid) from wgrad_plan; for a grid
+// reduce, part (chunks, 9 cin cout) float32 scratch and bar two unsigned
+// counters, zero, that the launch leaves zero (both null otherwise).
+template <typename T>
+static cudaError_t launch_conv_dw(wgrad::WgArgs a, int tw, cudaStream_t s) {
+  if (tw == 16) return wgrad::launch_wgrad<T, 3, 16>(a, s);
+  if constexpr (sizeof(T) == 2) {   // wgmma k steps stay in one tile row
+    if (tw == 32) return wgrad::launch_wgrad<T, 3, 32>(a, s);
+  } else {
+    if (tw == 28) return wgrad::launch_wgrad<T, 3, 28>(a, s);
+    if (tw == 14) return wgrad::launch_wgrad<T, 3, 14>(a, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// 8x16 pixel tiles of an H x W image: the dw kernels' work items per image
-extern "C" int dw_tiles(int H, int W) { return dense::tiles(H, W); }
+extern "C" int conv3x3_dw_launch(int dtype, const void* x, const void* g, float* part,
+                                 unsigned* bar, float* dw, int N, int H, int W, int cx, int cin,
+                                 int cout, int tw, int chunks, int per_chunk, int reduce,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int th = wgrad::tile_rows(tw);
+  wgrad::WgArgs a{};
+  a.x = x; a.g = g; a.cx = cx; a.cin = cin; a.cg = cout; a.N = N; a.H = H; a.W = W;
+  a.tiles_x = (W + tw - 1) / tw; a.tiles = a.tiles_x * ((H + th - 1) / th);
+  a.mtiles = (cin + common::C - 1) / common::C; a.ntiles = cout / common::C;
+  a.items = N * a.tiles; a.chunks = chunks; a.per_chunk = per_chunk;
+  a.reduce = reduce;
+  a.dw_size = a.stride = 9 * cin * cout; a.out = dw; a.part = part; a.bar = bar;
+  if (dtype == 0) return launch_conv_dw<float>(a, tw, s);
+  if (dtype == 1) return launch_conv_dw<__nv_bfloat16>(a, tw, s);
+  return (int)cudaErrorInvalidValue;
+}

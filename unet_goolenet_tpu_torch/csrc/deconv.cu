@@ -15,9 +15,13 @@
 //   * dx: conv_kernel with D2S staging and the AFFINE epilogue at scale 1,
 //     bias 0: a 1x1 conv with K = 4 cout over g read at the four parities
 //     (the inverse depth-to-space), no copy of g.
-//   * dW, db: conv_dw.cuh's split-K kernel with K = 1 and g read the same
-//     way; the blocks of x's first slab also sum g's columns for db. The
-//     reduce writes torch's (cin, cout, 2, 2) directly.
+//   * dW, db: one launch of conv_dw.cuh's wgrad_kernel with K = 1, a GEMM
+//     of M = cin, N = 4 cout (32 channels at the four parities a block), K =
+//     the pixels in steps of 64 through a cp.async ring, g read at its
+//     parities the same way, mma.sync in bf16; the blocks of x's first 64
+//     channels also sum the g tiles they stage for db. The pixels are split
+//     as wgrad_plan says and the chunks summed in a fixed order in the same
+//     launch, into torch's (cin, cout, 2, 2) and db.
 // cin and cout are multiples of 64 (the UNet's 64-512).
 //
 // Bound on an H100: 8 cin cout FLOP per input pixel; at up1 (64 -> 64,
@@ -68,18 +72,24 @@ extern "C" int deconv_dx_launch(int dtype, const void* g, const void* w, const f
   return (int)cudaErrorInvalidValue;
 }
 
-// dw (cin, cout, 2, 2) and db (cout,) float32 of x (N, H, W, cin) and g
-// (N, 2H, 2W, cout); part (chunks, 1, cin, 4 cout) and gsum (chunks, 4 cout)
-// float32 scratch, chunks * per_chunk >= N * dw_tiles(H, W).
+// out = dw (cin, cout, 2, 2) then db (cout,), float32, of x (N, H, W, cin)
+// and g (N, 2H, 2W, cout); chunks, per_chunk and reduce (0 one chunk, 1 a
+// cluster, 2 the grid) from wgrad_plan; for a grid reduce, part (chunks, 4
+// cin cout + cout) float32 scratch and bar two unsigned counters, zero, that
+// the launch leaves zero (both null otherwise).
 extern "C" int deconv_dwdb_launch(int dtype, const void* x, const void* g, float* part,
-                                  float* gsum, float* dw, float* db, int N, int H, int W,
-                                  int cin, int cout, int chunks, int per_chunk, void* stream) {
+                                  unsigned* bar, float* out, int N, int H, int W, int cin,
+                                  int cout, int chunks, int per_chunk, int reduce,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return wgrad::launch_dw<float, 1, true>(x, g, part, gsum, dw, db, N, H, W, cin, cout,
-                                            chunks, per_chunk, s);
-  if (dtype == 1)
-    return wgrad::launch_dw<__nv_bfloat16, 1, true>(x, g, part, gsum, dw, db, N, H, W, cin,
-                                                    cout, chunks, per_chunk, s);
+  if (cin % common::C) return (int)cudaErrorInvalidValue;
+  wgrad::WgArgs a{};
+  a.x = x; a.g = g; a.cx = a.cin = cin; a.cg = cout; a.N = N; a.H = H; a.W = W;
+  a.mtiles = cin / common::C; a.ntiles = cout / 32;
+  a.items = (int)(((long long)N * H * W + wgrad::STEP - 1) / wgrad::STEP);
+  a.chunks = chunks; a.per_chunk = per_chunk; a.reduce = reduce;
+  a.dw_size = 4 * cin * cout; a.stride = a.dw_size + cout; a.out = out; a.part = part; a.bar = bar;
+  if (dtype == 0) return wgrad::launch_wgrad<float, 1>(a, s);
+  if (dtype == 1) return wgrad::launch_wgrad<__nv_bfloat16, 1>(a, s);
   return (int)cudaErrorInvalidValue;
 }

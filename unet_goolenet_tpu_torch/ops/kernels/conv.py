@@ -19,7 +19,9 @@ Replaces the JAX package's Pallas kernels in
     to the first maximum of each window, torch's tie rule).
 
 Sources: `csrc/conv.cu`, `csrc/deconv.cu` (on `csrc/dense_conv.cuh` and
-`csrc/conv_dw.cuh`) and `csrc/pool.cu`; bounds and design notes there.
+`csrc/conv_dw.cuh`) and `csrc/pool.cu`; bounds and design notes there. The
+weight gradients' split is planned here (`wgrad_plan`), in plain Python that
+the CPU tests reach.
 Activations are dense NHWC, float32 or bfloat16; weights keep torch's
 layouts (conv OIHW, transposed conv (Cin, Cout, 2, 2)) and are laid out for
 the kernels at each call, since training changes them every step. The
@@ -35,7 +37,8 @@ kernels (or, on the CPU, their plain versions).
 
 from __future__ import annotations
 
-import math
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -167,13 +170,123 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def _chunks(dev, items: int, blocks_per_chunk: int):
-    """(chunks, tiles per chunk) of a split-K weight-gradient launch: enough
-    chunks that the grid fills the card about twice."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, min(items, math.ceil(2 * sms / blocks_per_chunk)))
-    per = math.ceil(items / want)
-    return math.ceil(items / per), per
+class WgradPlan(NamedTuple):
+    """How one weight-gradient launch (`csrc/conv_dw.cuh`) splits its work.
+    The kernel is a GEMM over output tiles of `mtiles` x `ntiles` (64 input
+    channels, all taps, times 64 columns for the conv; times 32 channels at
+    the four parities for the deconv) whose reduction runs over `items`:
+    `tile` (rows, cols) pixel tiles of each image (conv) or steps of 64
+    pixels (deconv; `tile` None).
+    The items are cut into `chunks` of `per_chunk`; block b of the grid
+    takes chunk b % chunks of output tile b // chunks, as `blocks` lists.
+    `out_elems` floats of the result (dw, then the deconv's db). `reduce`
+    says how the chunks are summed: "one" (a single chunk), "cluster" (up
+    to MAX_CLUSTER chunks, one thread-block cluster a tile, summed in
+    distributed shared memory) or "grid" (float32 partials, `partial_elems`
+    floats of scratch, one result per chunk, summed after a grid barrier)."""
+    taps: int
+    tile: Optional[Tuple[int, int]]
+    items: int
+    mtiles: int
+    ntiles: int
+    chunks: int
+    per_chunk: int
+    out_elems: int
+
+    @property
+    def grid(self) -> int:
+        return self.mtiles * self.ntiles * self.chunks
+
+    @property
+    def reduce(self) -> str:
+        return "one" if self.chunks == 1 else "cluster" if self.chunks <= MAX_CLUSTER else "grid"
+
+    @property
+    def partial_elems(self) -> int:
+        return self.chunks * self.out_elems if self.reduce == "grid" else 0
+
+    @property
+    def partial_bytes(self) -> int:
+        return 4 * self.partial_elems
+
+    def blocks(self):
+        """(chunk, mt, nt, first item, item count) of each block, in grid
+        order: the kernel's own mapping of blockIdx.x."""
+        for b in range(self.grid):
+            chunk, tile = b % self.chunks, b // self.chunks
+            i0 = chunk * self.per_chunk
+            yield chunk, tile // self.ntiles, tile % self.ntiles, i0, min(
+                self.items - i0, self.per_chunk)
+
+
+# the conv kernel's pixel tiles, (rows, cols): bf16 runs wgmma, whose k steps
+# of 16 pixels stay in one tile row; float32 may run them across rows
+DW_TILES = {torch.bfloat16: ((8, 16), (4, 32)), torch.float32: ((8, 16), (4, 28), (7, 14))}
+DW_STEP = 64          # the deconv kernel's pixels per item
+DW_MIN_ITEMS = 8      # the fewest items a chunk of a split plan takes
+# the most chunks summed in one thread-block cluster: on the H100, clusters
+# of 4 and 8 one-block-per-SM blocks did not all fit its GPCs at once and ran
+# in two waves, slower than the grid reduce
+MAX_CLUSTER = 3
+REDUCE_CODE = {"one": 0, "cluster": 1, "grid": 2}   # csrc/conv_dw.cuh's Reduce
+
+
+def wgrad_plan(taps: int, n: int, h: int, w: int, cin: int, cout: int, dtype,
+               sms: int) -> WgradPlan:
+    """The split of a weight-gradient launch: a conv's dw (taps = 9; x (n,
+    h, w, cin), g (n, h, w, cout)) or a deconv's dW/db (taps = 1; x (n, h,
+    w, cin), g (n, 2h, 2w, cout)) in `dtype` on a card of `sms` SMs. The
+    pixels are cut into chunks only as far as the output tiles leave SMs
+    idle (the grid stays within one block per SM, as the grid barrier of a
+    "grid" reduce needs) and never below DW_MIN_ITEMS items a chunk; beyond
+    MAX_CLUSTER chunks each chunk's partial, as large as the result, goes
+    through device memory."""
+    if taps == 9:
+        tile = dw_tile(h, w, dtype)
+        items = n * -(-h // tile[0]) * -(-w // tile[1])
+        mtiles, ntiles, out = -(-cin // BLOCK), cout // BLOCK, 9 * cin * cout
+    elif taps == 1:
+        tile, items = None, -(-(n * h * w) // DW_STEP)
+        mtiles, ntiles, out = cin // BLOCK, cout // 32, 4 * cin * cout + cout
+    else:
+        raise ValueError(f"wgrad_plan: taps must be 9 or 1, got {taps}")
+    chunks = max(1, min(sms // (mtiles * ntiles), items // DW_MIN_ITEMS))
+    per = -(-items // chunks)
+    return WgradPlan(taps, tile, items, mtiles, ntiles, -(-items // per), per, out)
+
+
+def dw_tile(h: int, w: int, dtype) -> Tuple[int, int]:
+    """The conv kernel's pixel tile for an h x w image in `dtype`: of
+    DW_TILES, the one that takes the fewest k steps of 16 pixels (a tile's
+    pixels rounded up to 16) to cover the image; the first of a tie."""
+    return min(DW_TILES[dtype],
+               key=lambda t: -(-h // t[0]) * -(-w // t[1]) * -(-t[0] * t[1] // 16))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_barriers = {}
+
+
+def _launch_plan(x: torch.Tensor, plan: WgradPlan):
+    """(part, bar) of a launch: for a "grid" reduce its partial scratch and
+    the grid barrier's two counters (zeroed once per device and stream;
+    every launch leaves them zero, and launches on one stream never
+    overlap); None otherwise."""
+    if plan.reduce != "grid":
+        return None, None
+    key = (x.device.index, stream(x))
+    if key not in _barriers:
+        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=x.device)
+    part = torch.empty(plan.partial_elems, device=x.device, dtype=torch.float32)
+    return part, _barriers[key]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -188,13 +301,15 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dense_channels("conv3x3_dw", cout)
     check("x", x, (n, h, wd, cin), x.dtype)
     check("g", g, (n, h, wd, cout), x.dtype)
-    items = n * lib_fn("dw_tiles", [INT, INT])(h, wd)
-    chunks, per = _chunks(x.device, items, (cout // BLOCK) * (_cin64(cin) // BLOCK))
-    part = torch.empty((chunks, 9, _cin64(cin), cout), device=x.device, dtype=torch.float32)
+    cx = -(-cin // 8) * 8   # every staging copy is 16 bytes
+    xk = x if cx == cin else F.pad(x, (0, cx - cin))
+    plan = wgrad_plan(9, n, h, wd, cin, cout, x.dtype, _sms(x.device.index))
+    part, bar = _launch_plan(x, plan)
     dw = torch.empty((cout, cin, 3, 3), device=x.device, dtype=torch.float32)
-    rc = lib_fn("conv3x3_dw_launch", [INT] + [PTR] * 4 + [INT] * 7 + [PTR])(
-        code, x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), n, h, wd, cin, cout,
-        chunks, per, stream(x))
+    rc = lib_fn("conv3x3_dw_launch", [INT] + [PTR] * 5 + [INT] * 10 + [PTR])(
+        code, xk.data_ptr(), g.data_ptr(), _ptr(part), _ptr(bar), dw.data_ptr(), n, h, wd, cx,
+        cin, cout, plan.tile[1], plan.chunks, plan.per_chunk, REDUCE_CODE[plan.reduce],
+        stream(x))
     launched("conv3x3_dw", rc)
     conv3x3_dw.launches += 1
     return dw
@@ -293,18 +408,15 @@ def deconv2x2_dwdb(x: torch.Tensor, g: torch.Tensor):
     dense_channels("deconv2x2_dwdb", cin, cout)
     check("x", x, (n, h, wd, cin), x.dtype)
     check("g", g, (n, 2 * h, 2 * wd, cout), x.dtype)
-    items = n * lib_fn("dw_tiles", [INT, INT])(h, wd)
-    chunks, per = _chunks(x.device, items, (4 * cout // BLOCK) * (cin // BLOCK))
-    part = torch.empty((chunks, 1, cin, 4 * cout), device=x.device, dtype=torch.float32)
-    gsum = torch.empty((chunks, 4 * cout), device=x.device, dtype=torch.float32)
-    dw = torch.empty((cin, cout, 2, 2), device=x.device, dtype=torch.float32)
-    db = torch.empty((cout,), device=x.device, dtype=torch.float32)
-    rc = lib_fn("deconv_dwdb_launch", [INT] + [PTR] * 6 + [INT] * 7 + [PTR])(
-        code, x.data_ptr(), g.data_ptr(), part.data_ptr(), gsum.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), n, h, wd, cin, cout, chunks, per, stream(x))
+    plan = wgrad_plan(1, n, h, wd, cin, cout, x.dtype, _sms(x.device.index))
+    part, bar = _launch_plan(x, plan)
+    out = torch.empty(plan.out_elems, device=x.device, dtype=torch.float32)
+    rc = lib_fn("deconv_dwdb_launch", [INT] + [PTR] * 5 + [INT] * 8 + [PTR])(
+        code, x.data_ptr(), g.data_ptr(), _ptr(part), _ptr(bar), out.data_ptr(), n, h, wd, cin,
+        cout, plan.chunks, plan.per_chunk, REDUCE_CODE[plan.reduce], stream(x))
     launched("deconv2x2_dwdb", rc)
     deconv2x2_dwdb.launches += 1
-    return dw, db
+    return out[:-cout].view(cin, cout, 2, 2), out[-cout:]
 
 
 def _pool_check(name, x):
