@@ -43,7 +43,10 @@ Phases, one line each (the first failure exits non-zero):
      every conv, pair, deconv and pool shape of the trainer at batch 4 and
      224^2, and at the edges of the weight-gradient plan at batch 2: a
      ragged 20x28 level, cin = 3 on a ragged 36x52 image, 14x14 512->512
-     (not split) and 28x28 1024->256 (the widest). conv3x3_dw and
+     (not split) and 28x28 1024->256 (the widest); and of the transposed
+     conv's tiles: a ragged 10x14 level, 3x5x7 (fewer pixels than an M
+     tile), 1x3x3 (smaller than a tile's row) and 7x9 512->256 (cin !=
+     cout). conv3x3_dw and
      deconv2x2_dwdb run twice on the same inputs and must give the same
      bits, and are held, as their plain versions are measured, against the
      plain version in float64.
@@ -66,10 +69,12 @@ Phases, one line each (the first failure exits non-zero):
      same work (F.conv2d, conv2d_input, conv2d_weight, conv_transpose2d and
      its gradients, max_pool2d and its backward; the dW/db's yardstick is
      conv2d_weight and the sum of the output gradient for db), with its
-     bound and, for the weight gradients, the plan's partial bytes: device
-     time, all of it from one profiler trace (the steps are host-bound, so
-     CUDA events around back-to-back calls measure the host), and the wall
-     time beside.
+     bound and, for the weight gradients, the plan's partial bytes, for the
+     transposed conv's forward and dx their tiles, splits, device launches
+     a call and ratio to the library call: device time, all of it from one
+     profiler trace (the steps are host-bound, so CUDA events around
+     back-to-back calls measure the host), and the wall time beside; and
+     the profiled bf16 step's launches, both paths side by side.
 Then a JSON line of the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Weights and images are random, made from seeds; nothing is downloaded.
@@ -193,7 +198,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def trace_device_ms(fns: dict, reps: int = 5) -> dict:
+def trace_device_ms(fns: dict, reps: int = 5, launches: dict = None) -> dict:
     """Mean device milliseconds per call of each fns[label], all from one
     profiler trace: the device time of every kernel and copy the call
     launches. Unlike cuda_ms it leaves out the gaps in which the device
@@ -202,7 +207,8 @@ def trace_device_ms(fns: dict, reps: int = 5) -> dict:
     times inside record_function(label). A device event belongs to the
     label whose host range holds the runtime call that launched it (the two
     share a correlation id), so host and device clocks are never compared.
-    Fails if a label holds no device time."""
+    Fails if a label holds no device time. If `launches` is given, it
+    receives each label's device events (kernels and copies) per call."""
     import bisect
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -224,7 +230,7 @@ def trace_device_ms(fns: dict, reps: int = 5) -> dict:
     # the CUDA API calls that launch work (cudaLaunchKernel, cudaMemcpyAsync, ...)
     launched = {k.correlation_id(): k.start_ns() for k, dev in zip(events, on_device)
                 if not dev and k.name().startswith("cu")}
-    ns, lost = dict.fromkeys(fns, 0), 0
+    ns, count, lost = dict.fromkeys(fns, 0), dict.fromkeys(fns, 0), 0
     for k, dev in zip(events, on_device):
         if not dev or k.name() in fns:
             continue        # host events, and the device-side copies of the ranges
@@ -232,6 +238,7 @@ def trace_device_ms(fns: dict, reps: int = 5) -> dict:
         i = -1 if t is None else bisect.bisect_right(starts, t) - 1
         if i >= 0 and t <= spans[i][1]:
             ns[spans[i][2]] += k.duration_ns()
+            count[spans[i][2]] += 1
         else:
             lost += k.duration_ns()
     empty = [label for label, t in ns.items() if t <= 0]
@@ -240,6 +247,8 @@ def trace_device_ms(fns: dict, reps: int = 5) -> dict:
     if empty:
         fail(f"the trace holds no device time for {len(empty)} of {len(fns)} calls, "
              f"e.g. {empty[:3]}")
+    if launches is not None:
+        launches.update({label: c / reps for label, c in count.items()})
     return {label: t / 1e6 / reps for label, t in ns.items()}
 
 
@@ -895,30 +904,37 @@ def pair_cases(n, h, cin, c, dtype, dev, seed) -> list:
                   + 16.0 * c, 0)]
 
 
-def deconv_cases(n, h, w, c, dtype, dev, seed) -> list:
+def deconv_cases(n, h, w, c, dtype, dev, seed, cout=None) -> list:
+    """The transposed conv (x (n, h, w, c), w (c, cout, 2, 2), cout = c
+    unless given), its dx and its dW/db; the forward and dx carry their
+    launch's tiles (ops/kernels/conv.py:deconv_plan)."""
     import torch.nn.functional as F
     from unet_goolenet_tpu_torch.ops.kernels import conv as K
 
+    cout = cout or c
     g = torch.Generator().manual_seed(seed)
     r = _rand(g, dev)
-    x, wt, b = r(n, h, w, c).to(dtype), r(c, c, 2, 2, sc=c ** -0.5), r(c, sc=0.1)
-    gy = r(n, 2 * h, 2 * w, c, sc=1e-3).to(dtype)
+    x, wt, b = r(n, h, w, c).to(dtype), r(c, cout, 2, 2, sc=c ** -0.5), r(cout, sc=0.1)
+    gy = r(n, 2 * h, 2 * w, cout, sc=1e-3).to(dtype)
     wl, bl = wt.to(dtype), b.to(dtype)
-    flops, es, label = 8.0 * n * h * w * c * c, torch.finfo(dtype).bits / 8, f"{n}x{h}x{w}x{c}"
+    flops, es = 8.0 * n * h * w * c * cout, torch.finfo(dtype).bits / 8
+    label = f"{n}x{h}x{w}x{c}" + (f"->{cout}" if cout != c else "")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return [
         TCase("deconv2x2", label, partial(K.deconv2x2, x, wt, b), partial(K.deconv2x2_ref, x, wt, b),
               lambda: F.conv_transpose2d(_nchw(x), wl, bl, stride=2), flops,
-              es * (x.numel() + wt.numel() + gy.numel()) + 4.0 * c, 1),
+              es * (x.numel() + wt.numel() + gy.numel()) + 4.0 * cout, 1,
+              K.deconv_plan(False, n, h, w, c, cout, sms)),
         TCase("deconv2x2_dx", label, partial(K.deconv2x2_dx, gy, wt),
               partial(K.deconv2x2_dx_ref, gy, wt), lambda: F.conv2d(_nchw(gy), wl, stride=2),
-              flops, es * (gy.numel() + wt.numel() + x.numel()), 1),
+              flops, es * (gy.numel() + wt.numel() + x.numel()), 1,
+              K.deconv_plan(True, n, h, w, c, cout, sms)),
         TCase("deconv2x2_dwdb", label, partial(K.deconv2x2_dwdb, x, gy),
               partial(K.deconv2x2_dwdb_ref, x, gy),
               lambda: (torch.nn.grad.conv2d_weight(_nchw(gy), wt.shape, _nchw(x), stride=2),
                        gy.sum((0, 1, 2))),
-              flops + 1.0 * gy.numel(), es * (x.numel() + gy.numel()) + 4.0 * (wt.numel() + c), 1,
-              K.wgrad_plan(1, n, h, w, c, c, dtype, sms)),
+              flops + 1.0 * gy.numel(), es * (x.numel() + gy.numel()) + 4.0 * (wt.numel() + cout),
+              1, K.wgrad_plan(1, n, h, w, c, cout, dtype, sms)),
     ]
 
 
@@ -945,8 +961,10 @@ def pool_cases(n, h, w, c, dtype, dev, seed) -> list:
 def train_cases(n, dtype, dev, seed, ragged=False) -> list:
     """Every training kernel at the trainer's shapes for n images at 224^2,
     or at the edges: a ragged 20x28 level, cin = 3 on a ragged 36x52 image,
-    and for the weight-gradient plan 14x14 512->512 (one chunk) and 28x28
-    1024->256 (the most output tiles)."""
+    for the weight-gradient plan 14x14 512->512 (one chunk) and 28x28
+    1024->256 (the most output tiles), and for the transposed conv's tiles
+    3x5x7 (fewer pixels than an M tile), 1x3x3 (smaller than a tile's row)
+    and 7x9 512->256 (cin != cout)."""
     if ragged:
         return (conv_cases(n, 20, 28, 128, 64, 1, dtype, dev, seed)
                 + conv_cases(n, 36, 52, 3, 64, 1, dtype, dev, seed + 1)
@@ -954,6 +972,9 @@ def train_cases(n, dtype, dev, seed, ragged=False) -> list:
                 + conv_cases(n, 28, 28, 1024, 256, 1, dtype, dev, seed + 6, dx=False)
                 + pair_cases(n, 20, 128, 64, dtype, dev, seed + 2)
                 + deconv_cases(n, 10, 14, 128, dtype, dev, seed + 3)
+                + deconv_cases(3, 5, 7, 64, dtype, dev, seed + 7)
+                + deconv_cases(1, 3, 3, 256, dtype, dev, seed + 8)
+                + deconv_cases(n, 7, 9, 512, dtype, dev, seed + 9, cout=256)
                 + pool_cases(n, 20, 28, 64, dtype, dev, seed + 4))
     cases = []
     for i, (h, cin, cout, k) in enumerate(UNET_CONVS):
@@ -1015,7 +1036,8 @@ def phase_train_kernels(dev) -> dict:
             for name, (a, w) in worst.items():
                 say("kernel", name=name, dtype=dname(dtype),
                     shapes=("edges: ragged 20x28, cin 3 at 36x52, 14x14 512->512, "
-                            "28x28 1024->256" if ragged else "trainer, batch 4, 224^2"),
+                            "28x28 1024->256; deconv 10x14, 3x5x7, 1x3x3, 7x9 512->256"
+                            if ragged else "trainer, batch 4, 224^2"),
                     max_abs_err=f"{a:.3e}", max_rel_err=f"{w:.3e}", tol=f"{KERNEL_TOL[dtype]:.0e}",
                     ok=True)
                 if not ragged and dtype == torch.bfloat16:
@@ -1238,9 +1260,11 @@ def time_train(dev) -> dict:
             say("timing", what=f"train_{what}", path="kernels" if k else "stock",
                 dtype="bfloat16" if bf16 else "float32", batch=4, img=224,
                 ms=f"{sum(rs) / len(rs):.3f}", runs_ms=",".join(f"{v:.3f}" for v in rs))
-        if bf16:
-            for k in (False, True):
-                profile_call(steps[k], f"train_step_bf16_b4_{'kernels' if k else 'stock'}")
+        if bf16:   # launches a step, both paths from this call's traces
+            n = {k: profile_call(steps[k], f"train_step_bf16_b4_{'kernels' if k else 'stock'}")
+                 for k in (False, True)}
+            say("profile", what="train_step_bf16_b4_launches", stock=n[False], kernels=n[True],
+                kernels_minus_stock=None if None in n.values() else n[True] - n[False])
         del steps, evals
     agg = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops=0.0, mem=0.0)
            for name in TRAIN_KERNELS}
@@ -1253,7 +1277,8 @@ def time_train(dev) -> dict:
             fns[f"{dname(dtype)} {i} plain"] = case.plain
             if case.library:
                 fns[f"{dname(dtype)} {i} library"] = case.library
-    ms = trace_device_ms(fns)
+    per_call = {}
+    ms = trace_device_ms(fns, launches=per_call)
     for name in REPEATED:   # the float32 partials one pass writes
         for dtype, cs in cases.items():
             mb = sum(c.per_pass * c.plan.partial_bytes for c in cs if c.name == name) / 1e6
@@ -1264,11 +1289,15 @@ def time_train(dev) -> dict:
             km, pm = ms[f"{dname(dtype)} {i} kernel"], ms[f"{dname(dtype)} {i} plain"]
             lm = ms.get(f"{dname(dtype)} {i} library")
             bound, by = case.bound(dtype)
-            plan = {} if case.plan is None else dict(
-                chunks=case.plan.chunks, partial_mb=f"{case.plan.partial_bytes / 1e6:.3f}")
+            plan = {} if case.plan is None else (
+                dict(chunks=case.plan.chunks, partial_mb=f"{case.plan.partial_bytes / 1e6:.3f}")
+                if hasattr(case.plan, "chunks") else
+                dict(tiles=f"{case.plan.mtiles}x{case.plan.ntiles}", splits=case.plan.splits,
+                     launches_per_call=f"{per_call[f'{dname(dtype)} {i} kernel']:g}"))
             say("timing", what=case.name, shape=repr(case.label), dtype=dname(dtype), batch=4,
                 device_ms=f"{km:.4f}", plain_device_ms=f"{pm:.4f}",
                 library_device_ms="null" if lm is None else f"{lm:.4f}",
+                vs_library="null" if lm is None else f"{km / lm:.3f}",
                 wall_ms=f"{cuda_ms(case.kern, 5):.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
                 share_of_bound=f"{bound / km:.3f}", calls_per_pass=case.per_pass, **plan)
             if dtype == torch.bfloat16:
@@ -1298,10 +1327,11 @@ def host_ms(fn, calls: int = 7):
     return sorted(host)[calls // 2], sorted(wall)[calls // 2]
 
 
-def profile_call(fn, what: str) -> None:
+def profile_call(fn, what: str):
     """Host time per call, then one traced call: device busy time against
     wall time, the CUDA runtime calls that make the host wait, and the
-    kernels that take most of the device time."""
+    kernels that take most of the device time. Returns the traced call's
+    device launches (kernels and copies), or None without device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1324,7 +1354,7 @@ def profile_call(fn, what: str) -> None:
              if "Synchronize" in e.key or e.key in ("cudaMemcpy", "cudaMemcpyAsync")}
     if not kernels:
         say("profile", what=what, device_time="not measured (the trace holds no device time)")
-        return
+        return None
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     say("profile", what=what, wall_ms=f"{wall_ms:.3f}", device_busy_ms=f"{busy_ms:.3f}",
         idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.3f}",
@@ -1332,6 +1362,7 @@ def profile_call(fn, what: str) -> None:
     for e in kernels[:12]:
         say("profile", what=what, kernel=repr(e.key[:90]), calls=e.count,
             ms=f"{device_us(e) / 1e3:.3f}")
+    return sum(e.count for e in kernels)
 
 
 def main() -> None:

@@ -14,7 +14,9 @@ taken of sum(f(x) * c) for a seeded cotangent c on both sides. Tolerance:
 The weight-gradient kernels' plan (`wgrad_plan`) is plain Python, held here
 at the trainer's 16 conv and 4 deconv shapes: every output tile of every
 item is computed by exactly one block, the partial scratch is what the
-blocks write, and one pass writes at most 0.5 GB of partials.
+blocks write, and one pass writes at most 0.5 GB of partials. So is the
+transposed conv's tiling (`deconv_plan`), at the trainer's 4 levels and the
+kernel tests' edges: every output element is written by one block, once.
 
 On a GPU host without JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_train_kernels.py`. There each kernel, forward and every
@@ -225,6 +227,45 @@ def test_wgrad_plan_partials_of_a_pass(dtype):
     assert [K.dw_tile(h, h, dtype) for h in (224, 112, 56, 28, 14)] == tiles
 
 
+# the kernel tests' edges for the transposed conv: (n, h, w, cin, cout) of x
+# (n, h, w, cin) and w (cin, cout, 2, 2): fewer pixels than an M tile, one
+# smaller than a tile, cin != cout, a ragged level
+DECONV_EDGES = ((3, 5, 7, 64, 64), (1, 3, 3, 256, 256), (2, 7, 9, 512, 256), (2, 10, 14, 128, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dx", [False, True], ids=["forward", "dx"])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(4, h, h, c, c) for h, c in TRAIN_DECONVS]
+                         + list(DECONV_EDGES))
+def test_deconv_plan_covers_every_output_once(n, h, w, cin, cout, dx, dtype):
+    """Every output element of the transposed conv's forward or dx lies in
+    one M tile and one N tile; each tile's K splits cover the K tiles once
+    and its cluster ranks share out its 16-byte output chunks, each summed
+    over the splits by one rank: so each element is written once. A split
+    plan stays in one wave of one block per SM."""
+    plan = K.deconv_plan(dx, n, h, w, cin, cout, SMS)
+    rows, width = (n * h, w) if dx else (1, n * h * w)
+    assert (plan.rows, plan.width, plan.n) == (rows, width, cin if dx else 4 * cout)
+    assert plan.R * plan.S <= K.DC_BM and plan.ktiles * K.DC_BK == (4 * cout if dx else cin)
+    pixels = np.concatenate([plan.pixels(mt) for mt in range(plan.mtiles)])
+    np.testing.assert_array_equal(np.bincount(pixels, minlength=rows * width), 1)
+    assert plan.ntiles * plan.bn == plan.n
+    ktiles = {}
+    for split, mt, nt, first, count in plan.blocks():
+        assert count >= 1 and (mt, nt, split) not in ktiles
+        ktiles[mt, nt, split] = range(first, first + count)
+    assert len(ktiles) == plan.grid == plan.mtiles * plan.ntiles * plan.splits
+    for mt in range(plan.mtiles):
+        for nt in range(plan.ntiles):
+            assert sorted(k for z in range(plan.splits) for k in ktiles[mt, nt, z]) == \
+                list(range(plan.ktiles))
+    chunks = sorted(c for z in range(plan.splits) for c in plan.stores(z, dtype))
+    assert chunks == list(range(plan.R * plan.S * plan.bn * torch.finfo(dtype).bits // 128))
+    if plan.splits > 1:
+        assert dx and plan.splits <= K.DC_MAX_SPLIT and plan.grid <= SMS
+        assert plan.kper >= K.DC_MIN_KTILES
+
+
 # ------------------------------------------------------------------ on the card
 
 
@@ -293,11 +334,17 @@ def test_convstack2_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,c", [(2, 10, 14, 128), (1, 7, 9, 512)])
+@pytest.mark.parametrize("n,h,w,c", [(2, 10, 14, 128), (1, 7, 9, 512), (3, 5, 7, 64),
+                                     (1, 3, 3, 256),
+                                     pytest.param(2, 7, 9, (512, 256), id="2-7-9-512-256")])
 def test_deconv_kernels_match_plain(cuda, dtype, n, h, w, c):
+    """A ragged level, levels of fewer pixels than an M tile (3x5x7, and
+    1x3x3 smaller than a tile's row), and cin != cout (c = (cin, cout));
+    the weight gradients repeat bit for bit."""
+    cin, cout = c if isinstance(c, tuple) else (c, c)
     r = on_card(cuda, dtype, 8)
-    x, wt, b = r(n, h, w, c).to(dtype), r(c, c, 2, 2, sc=c ** -0.5), r(c, sc=0.1)
-    g = r(n, 2 * h, 2 * w, c).to(dtype)
+    x, wt, b = r(n, h, w, cin).to(dtype), r(cin, cout, 2, 2, sc=cin ** -0.5), r(cout, sc=0.1)
+    g = r(n, 2 * h, 2 * w, cout).to(dtype)
     agrees(counted(K.deconv2x2, x, wt, b), K.deconv2x2_ref(x, wt, b), dtype)
     agrees(counted(K.deconv2x2_dx, g, wt), K.deconv2x2_dx_ref(g, wt), dtype)
     dwdb = counted(K.deconv2x2_dwdb, x, g)

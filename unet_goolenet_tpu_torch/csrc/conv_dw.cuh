@@ -720,11 +720,15 @@ __global__ void __launch_bounds__(Geo<T, K, TW>::THREADS, 1)
   }
 }
 
-// A 4-D TMA map over an NHWC bf16 tensor of C channels (a multiple of 8):
-// boxes of 8 channels x bw x bh pixels of one image, zeros past its edges.
-// cuTensorMapEncodeTiled is reached through the runtime, so the library
+// A 4-D TMA map over p: dims[0] contiguous elements of `type` (16-byte
+// rows at least), dims 1-3 at strides (bytes) strides[0..2]; boxes of box[0..3]
+// elements, zeros past the edges, laid out in shared memory as `swizzle`
+// says. cuTensorMapEncodeTiled is reached through the runtime, so the library
 // needs no link against the driver.
-inline bool nhwc_map(CUtensorMap* map, const void* p, int C, int W, int H, int N, int bw, int bh) {
+inline bool tensor_map4(CUtensorMap* map, CUtensorMapDataType type, const void* p,
+                        const cuuint64_t dims[4], const cuuint64_t strides[3],
+                        const cuuint32_t box[4],
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -735,13 +739,20 @@ inline bool nhwc_map(CUtensorMap* map, const void* p, int C, int W, int H, int N
       return false;
     }
   }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// An NHWC bf16 tensor of C channels (a multiple of 8) as boxes of 8 channels
+// x bw x bh pixels of one image.
+inline bool nhwc_map(CUtensorMap* map, const void* p, int C, int W, int H, int N, int bw, int bh) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
   const cuuint64_t strides[3] = {2ull * C, 2ull * C * W, 2ull * C * W * H};   // bytes
-  const cuuint32_t box[4] = {8, (cuuint32_t)bw, (cuuint32_t)bh, 1}, unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  const cuuint32_t box[4] = {8, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  return tensor_map4(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, dims, strides, box);
 }
 
 // One launch over a plan (wgrad_plan): items, chunks and per_chunk must

@@ -1,8 +1,8 @@
 // One implicit-GEMM convolution kernel for the gate passes, the dense
 // decoder and encoder levels and the training convolutions (gate.cu,
-// up_level.cu, down1.cu, conv.cu, deconv.cu), where channel counts run from
-// 3 to 1024 and neither the weights nor an intermediate of a whole level fit
-// in a block's shared memory.
+// up_level.cu, down1.cu, conv.cu), where channel counts run from 3 to 1024
+// and neither the weights nor an intermediate of a whole level fit in a
+// block's shared memory.
 //
 // conv_kernel<T, K, SRC, MODE> computes, for one 8x16-pixel output tile of
 // one image and one block of 64 output channels (grid: tiles x cout/64 x N),
@@ -30,9 +30,7 @@
 // carry cin = c0 rounded up to 64 with zero rows there. POOL reads src0 at
 // twice the output size and stages the 2x2 max of each pixel; positions
 // outside the image stage as exact zeros, so the kernel needs no sign
-// assumption on its input. D2S (K = 1) reads src0 (N, 2H, 2W, cin/4) as the
-// (N, H, W, cin) map whose channel (di*2 + dj)*cin/4 + c is pixel (2y+di,
-// 2x+dj), channel c: the transposed conv's input gradient as a 1x1 conv.
+// assumption on its input.
 //
 // Per slab the (8+K-1) x (16+K-1) x 64 input halo is staged into shared
 // memory with zeros outside the image (16-byte cp.async copies, or through
@@ -56,7 +54,7 @@ using namespace common;
 constexpr int TH = 8, TW = 16, TR = TH * TW;   // output tile
 constexpr int YT_PITCH = C + 8;                // float epilogue tile, padded
 enum Mode { RELU = 0, STATS = 1, GATE = 2, DECONV = 3, HEAD = 4, AFFINE = 5 };
-enum Src { DENSE = 0, POOL = 1, D2S = 2 };
+enum Src { DENSE = 0, POOL = 1 };
 
 struct ConvArgs {
   const void* src0;
@@ -164,17 +162,6 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
         }
         store4(xin + pix * PITCH + 4 * q, v);
       }
-    } else if constexpr (SRC == D2S) {   // K = 1: no halo
-      constexpr int V = 16 / sizeof(T);
-      const int cg = a.cin / 4, par = ci0 / cg, co = ci0 % cg;
-      for (int i = threadIdx.x; i < TR * (C / V); i += THREADS) {
-        const int q = i % (C / V), pix = i / (C / V);
-        const int Y = y0 + pix / TW, X = x0 + pix % TW;
-        const bool in = Y < H && X < W;
-        const size_t o = ((size_t)n * 2 * H + 2 * Y + (par >> 1)) * 2 * W + 2 * X + (par & 1);
-        cp_async16(xin + pix * PITCH + V * q, in ? src + o * cg + co + V * q : src, in);
-      }
-      cp_async_wait_all();
     } else {
       stage_slab<T>(xin, src, n, y0 - HALO, x0 - HALO, IR, IC, H, W, cs, cofs);
     }
@@ -263,7 +250,6 @@ cudaError_t launch(ConvArgs a, int N, int nblocks, cudaStream_t stream) {
   // a ragged c0 only as the sole source, with cin = c0 rounded up to 64
   const bool ragged_ok = SRC == DENSE && a.src1 == nullptr && a.cin == (a.c0 + C - 1) / C * C;
   if (a.cin % C || a.cout % C || (a.c0 % C && !ragged_ok)) return cudaErrorInvalidValue;
-  if (SRC == D2S && (K != 1 || a.cin % (4 * C))) return cudaErrorInvalidValue;
   a.tiles_x = tiles_x(a.W);
   constexpr size_t smem = conv_smem<T>();
   cudaError_t err = cudaFuncSetAttribute(conv_kernel<T, K, SRC, MODE>,

@@ -18,15 +18,18 @@ Replaces the JAX package's Pallas kernels in
     `max_pool2x2_bwd` for its backward (plain jnp there: the gradient goes
     to the first maximum of each window, torch's tie rule).
 
-Sources: `csrc/conv.cu`, `csrc/deconv.cu` (on `csrc/dense_conv.cuh` and
-`csrc/conv_dw.cuh`) and `csrc/pool.cu`; bounds and design notes there. The
-weight gradients' split is planned here (`wgrad_plan`), in plain Python that
-the CPU tests reach.
+Sources: `csrc/conv.cu` (on `csrc/dense_conv.cuh`), `csrc/deconv.cu` (its
+own TMA + wgmma GEMM; dW/db on `csrc/conv_dw.cuh`), `csrc/conv_dw.cuh` and
+`csrc/pool.cu`; bounds and design notes there. The weight gradients' split
+(`wgrad_plan`) and the transposed conv's tiles (`deconv_plan`) are planned
+here, in plain Python that the CPU tests reach.
 Activations are dense NHWC, float32 or bfloat16; weights keep torch's
-layouts (conv OIHW, transposed conv (Cin, Cout, 2, 2)) and are laid out for
-the kernels at each call, since training changes them every step. The
-kernels accumulate in float32 and round each output to the activation
-dtype; weight gradients are float32.
+layouts (conv OIHW, transposed conv (Cin, Cout, 2, 2)). The conv's are laid
+out for the kernels at each call, since training changes them every step;
+the transposed conv's forward reads torch's float32 weight as it lies, and
+its dx lays it out once, in one small launch. The kernels accumulate in
+float32 and round each output to the activation dtype; weight gradients are
+float32.
 
 Each wrapper takes its plain version (`*_ref`) only for a tensor on the CPU.
 For a CUDA tensor it launches the kernel or raises. Each counts its calls
@@ -47,7 +50,6 @@ from unet_goolenet_tpu_torch.ops.conv import conv2d, conv_transpose2x2
 from unet_goolenet_tpu_torch.ops.kernels._common import (
     BLOCK, INT, PTR, blocked_taps, check, dense_channels, dtype_code, launched, lib_fn,
     round_to, stream, wide)
-from unet_goolenet_tpu_torch.ops.kernels.up2 import deconv_as_conv1x1
 from unet_goolenet_tpu_torch.ops.pool import max_pool2d
 
 # ------------------------------------------------------------ plain versions
@@ -139,9 +141,11 @@ def conv_weights(w: torch.Tensor, dtype) -> torch.Tensor:
     return blocked_taps(w.detach(), dtype)
 
 
-def _vec(name: str, t: torch.Tensor, n: int) -> torch.Tensor:
+def _f32(name: str, t: torch.Tensor, shape) -> torch.Tensor:
+    """t as float32 and contiguous: itself, with no copy, for a float32
+    parameter."""
     t = t.detach().float().contiguous()
-    check(name, t, (n,), torch.float32)
+    check(name, t, shape, torch.float32)
     return t
 
 
@@ -160,7 +164,7 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"fused_conv3x3: w must be ({cout}, {cin}, 3, 3), got {tuple(w.shape)}")
     check("x", x, (n, h, wd, cin), x.dtype)
     wk = conv_weights(w, x.dtype)
-    sk, bk = _vec("scale", scale, cout), _vec("bias", bias, cout)
+    sk, bk = _f32("scale", scale, (cout,)), _f32("bias", bias, (cout,))
     out = torch.empty((n, h, wd, cout), device=x.device, dtype=x.dtype)
     rc = lib_fn("conv3x3_launch", [INT] + [PTR] * 5 + [INT] * 6 + [PTR])(
         code, x.data_ptr(), wk.data_ptr(), sk.data_ptr(), bk.data_ptr(), out.data_ptr(),
@@ -289,6 +293,99 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+class DeconvPlan(NamedTuple):
+    """The tiles of one transposed-conv GEMM launch (`csrc/deconv.cu`),
+    M pixels x N columns x K: the forward (`dx` False) is x (N*H*W, cin) @
+    w (cin, 4 cout); dx is g at its four parities (K = 4 cout, a K tile 64
+    o of one parity) @ w (4 cout, cin). A is viewed as `rows` rows of
+    `width` pixels (the forward: one row of N*H*W input pixels; dx: the N*H
+    rows of x's width), an M tile as `R` rows x `S` pixels of them (R * S
+    <= DC_BM).
+    N tiles are `bn` columns; K runs in `ktiles` tiles of DC_BK, cut into
+    `splits` runs of `kper` (the blocks of one thread-block cluster, their
+    tiles summed in rank order). Block b of the grid takes split b %
+    splits of M tile b // splits % mtiles and N tile b // splits // mtiles,
+    as `blocks` lists."""
+    dx: bool
+    rows: int
+    width: int
+    R: int
+    S: int
+    n: int
+    bn: int
+    ktiles: int
+    splits: int
+    kper: int
+
+    @property
+    def ctiles(self) -> int:
+        return -(-self.width // self.S)
+
+    @property
+    def mtiles(self) -> int:
+        return -(-self.rows // self.R) * self.ctiles
+
+    @property
+    def ntiles(self) -> int:
+        return self.n // self.bn
+
+    @property
+    def grid(self) -> int:
+        return self.mtiles * self.ntiles * self.splits
+
+    def pixels(self, mt: int):
+        """The pixels (row * width + column) of M tile mt, in tile order."""
+        rt, ct = divmod(mt, self.ctiles)
+        return [r * self.width + j
+                for r in range(rt * self.R, min(self.rows, rt * self.R + self.R))
+                for j in range(ct * self.S, min(self.width, ct * self.S + self.S))]
+
+    def blocks(self):
+        """(split, mt, nt, first k tile, k tiles) of each block, in grid
+        order: the kernel's own mapping of blockIdx.x."""
+        for b in range(self.grid):
+            split, tile = b % self.splits, b // self.splits
+            k0 = split * self.kper
+            yield split, tile % self.mtiles, tile // self.mtiles, k0, min(self.ktiles - k0,
+                                                                          self.kper)
+
+    def stores(self, split: int, dtype) -> range:
+        """The 16-byte output chunks of a tile (R * S rows of bn / V, V
+        elements of dtype to 16 bytes) that rank `split` of the cluster sums
+        over the ranks and writes."""
+        nch = self.R * self.S * self.bn * torch.finfo(dtype).bits // 128
+        per = -(-nch // self.splits)
+        return range(split * per, min(nch, (split + 1) * per))
+
+
+DC_BM, DC_BK = 128, 64   # csrc/deconv.cu: pixels of an M tile; K of a stage
+DC_MAX_SPLIT = 4         # the most K splits a cluster sums
+DC_MIN_KTILES = 4        # the fewest K tiles a split takes
+
+
+def deconv_plan(dx: bool, n: int, h: int, w: int, cin: int, cout: int, sms: int) -> DeconvPlan:
+    """The tiles of the transposed conv's forward (dx False) or input
+    gradient for x (n, h, w, cin) and y (n, 2h, 2w, cout) on a card of
+    `sms` SMs. M tiles are 128 pixels: the forward's flattened, dx's whole
+    rows of x's width where they fit (else 128-pixel segments of a row); N
+    tiles are 128 columns for the forward (32 o at the four parities), 64
+    for dx. dx splits K, up to DC_MAX_SPLIT ways and never below
+    DC_MIN_KTILES tiles a split, while the grid stays within one block per
+    SM: the 14^2 level has 7 M x 8 N tiles, so its dx runs 2 splits a
+    tile."""
+    rows, width, k, cols = (n * h, w, 4 * cout, cin) if dx else (1, n * h * w, cin, 4 * cout)
+    s_ = min(width, DC_BM)
+    r_ = min(rows, max(1, DC_BM // width))
+    ktiles = k // DC_BK
+    plan = DeconvPlan(dx, rows, width, r_, s_, cols, 64 if dx else 128, ktiles, 1, ktiles)
+    splits = 1
+    while dx and (splits < DC_MAX_SPLIT and plan.grid * (splits + 1) <= sms
+                  and ktiles >= (splits + 1) * DC_MIN_KTILES):
+        splits += 1
+    kper = -(-ktiles // splits)
+    return plan._replace(splits=-(-ktiles // kper), kper=kper)
+
+
 def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Float32 (cout, cin, 3, 3) weight gradient of a 3x3 pad-1 conv of x
     (N, H, W, cin), any cin, given g (N, H, W, cout) in x's dtype, cout a
@@ -331,7 +428,8 @@ def fused_convstack2(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
                          f"do not chain from {cin} channels")
     check("x", x, (n, h, wd, cin), x.dtype)
     wk1, wk2 = conv_weights(w1, x.dtype), conv_weights(w2, x.dtype)
-    vs = (_vec("s1", s1, cmid), _vec("b1", b1, cmid), _vec("s2", s2, cout), _vec("b2", b2, cout))
+    vs = tuple(_f32(name, t, (c,)) for name, t, c in
+               (("s1", s1, cmid), ("b1", b1, cmid), ("s2", s2, cout), ("b2", b2, cout)))
     mid = torch.empty((n, h, wd, cmid), device=x.device, dtype=x.dtype)
     out = torch.empty((n, h, wd, cout), device=x.device, dtype=x.dtype)
     rc = lib_fn("convstack2_launch", [INT] + [PTR] * 9 + [INT] * 6 + [PTR])(
@@ -356,13 +454,13 @@ def _deconv_check(name, x, w):
 def deconv2x2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """ConvTranspose 2x2 / stride 2: x (N, H, W, cin), w (cin, cout, 2, 2),
     b (cout,), cin and cout multiples of 64 -> (N, 2H, 2W, cout) in x's
-    dtype; b is rounded to x's dtype, as the TPU kernel takes it."""
+    dtype; w and b are rounded to x's dtype, as the TPU kernel takes them.
+    One launch: the kernel reads the float32 weight and bias as they lie."""
     if x.device.type == "cpu":
         return deconv2x2_ref(x, w, b)
     code = dtype_code("deconv2x2", x)
     n, h, wd, cin, cout = _deconv_check("deconv2x2", x, w)
-    wk = blocked_taps(deconv_as_conv1x1(w.detach()), x.dtype)
-    bk = _vec("b", round_to(b.detach(), x.dtype), cout)
+    wk, bk = _f32("w", w, (cin, cout, 2, 2)), _f32("b", b, (cout,))
     out = torch.empty((n, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
     rc = lib_fn("deconv_launch", [INT] + [PTR] * 4 + [INT] * 5 + [PTR])(
         code, x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
@@ -374,7 +472,10 @@ def deconv2x2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def deconv2x2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of `deconv2x2`: g (N, 2H, 2W, cout), w (cin, cout, 2,
-    2) -> (N, H, W, cin) in g's dtype."""
+    2) -> (N, H, W, cin) in g's dtype; w is rounded to g's dtype. Two
+    launches: w laid out as (cin, 4, cout) in g's dtype (each input
+    channel's row in the kernel's K order, parity-major), then the GEMM,
+    with the tiles `deconv_plan` gives."""
     if g.device.type == "cpu":
         return deconv2x2_dx_ref(g, w)
     code = dtype_code("deconv2x2_dx", g)
@@ -384,13 +485,17 @@ def deconv2x2_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if tuple(w.shape) != (cin, cout, 2, 2) or h2 % 2 or w2 % 2:
         raise ValueError(f"deconv2x2_dx: g {tuple(g.shape)} and w {tuple(w.shape)} disagree")
     check("g", g, (n, h2, w2, cout), g.dtype)
-    wk = blocked_taps(w.detach().permute(0, 2, 3, 1).reshape(cin, 4 * cout, 1, 1), g.dtype)
-    ones = torch.ones(cin, device=g.device)
-    zeros = torch.zeros(cin, device=g.device)
-    dx = torch.empty((n, h2 // 2, w2 // 2, cin), device=g.device, dtype=g.dtype)
-    rc = lib_fn("deconv_dx_launch", [INT] + [PTR] * 5 + [INT] * 5 + [PTR])(
-        code, g.data_ptr(), wk.data_ptr(), ones.data_ptr(), zeros.data_ptr(), dx.data_ptr(),
-        n, h2 // 2, w2 // 2, cin, cout, stream(g))
+    h, wd = h2 // 2, w2 // 2
+    w32 = _f32("w", w, (cin, cout, 2, 2))
+    wk = torch.empty((cin, 4, cout), device=g.device, dtype=g.dtype)
+    rc = lib_fn("deconv_dx_weight_launch", [INT, PTR, PTR, INT, INT, PTR])(
+        code, w32.data_ptr(), wk.data_ptr(), cin, cout, stream(g))
+    launched("deconv2x2_dx", rc)
+    plan = deconv_plan(True, n, h, wd, cin, cout, _sms(g.device.index))
+    dx = torch.empty((n, h, wd, cin), device=g.device, dtype=g.dtype)
+    rc = lib_fn("deconv_dx_launch", [INT] + [PTR] * 3 + [INT] * 6 + [PTR])(
+        code, g.data_ptr(), wk.data_ptr(), dx.data_ptr(), n, h, wd, cin, cout, plan.splits,
+        stream(g))
     launched("deconv2x2_dx", rc)
     deconv2x2_dx.launches += 1
     return dx
