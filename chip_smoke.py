@@ -36,19 +36,20 @@ Phases, one line each (the first failure exits non-zero):
      call at batch 16 and 64, and one profiler trace of each, and of one
      all-fused bf16 batch-64 call (device busy vs wall, host syncs, top
      kernels).
-  7. training kernels: kernels 6-9 (fused conv3x3 forward, its dx through
-     the same kernel and its weight gradient; the conv-stack pair; the 2x2
+  7. training kernels: kernels 6-9 (fused conv3x3 forward, its dx
+     (conv3x3_dx) and its weight gradient; the conv-stack pair; the 2x2
      transposed conv, its dx and dW/db; the 2x2 max pool and its backward)
      against their plain versions in float32 (TF32 off) and bfloat16, at
      every conv, pair, deconv and pool shape of the trainer at batch 4 and
-     224^2, and at the edges of the weight-gradient plan at batch 2: a
-     ragged 20x28 level, cin = 3 on a ragged 36x52 image, 14x14 512->512
-     (not split) and 28x28 1024->256 (the widest); and of the transposed
+     224^2, and at the edges of the plans at batch 2: a ragged 20x28 level,
+     cin = 3 on a ragged 36x52 image (dx: 3 output channels), 14x14
+     512->512 (the weight gradient in one chunk, the bf16 forward and dx
+     with K split) and 28x28 1024->256 (the widest); and of the transposed
      conv's tiles: a ragged 10x14 level, 3x5x7 (fewer pixels than an M
      tile), 1x3x3 (smaller than a tile's row) and 7x9 512->256 (cin !=
-     cout). conv3x3_dw and
-     deconv2x2_dwdb run twice on the same inputs and must give the same
-     bits, and are held, as their plain versions are measured, against the
+     cout). conv3x3_dw, deconv2x2_dwdb and the conv's forward and dx run
+     twice on the same inputs and must give the same bits; the weight
+     gradients are held, as their plain versions are measured, against the
      plain version in float64.
   8. training, the main path of this slice: 12 seeded PNGs (8 train, 4 val,
      400x500 with a lesion mask) through `apps.train_seg.main --kernels`
@@ -70,8 +71,8 @@ Phases, one line each (the first failure exits non-zero):
      its gradients, max_pool2d and its backward; the dW/db's yardstick is
      conv2d_weight and the sum of the output gradient for db), with its
      bound and, for the weight gradients, the plan's partial bytes, for the
-     transposed conv's forward and dx their tiles, splits, device launches
-     a call and ratio to the library call: device time, all of it from one
+     conv's and the transposed conv's forward and dx their tiles, splits,
+     device launches a call and ratio to the library call: device time, all of it from one
      profiler trace (the steps are host-bound, so CUDA events around
      back-to-back calls measure the host), and the wall time beside; and
      the profiled bf16 step's launches, both paths side by side.
@@ -125,11 +126,13 @@ CONFIGS = {"default": {}, "fused": FUSED, "up2_down1": dict(fused_up2=True, fuse
 LEVELS = ((112, 128, 64), (56, 256, 128), (28, 512, 256))
 # kernels 6-9 of the training path: wrapper -> (source, the TPU kernel it replaces)
 TRAIN_KERNELS = {
-    "fused_conv3x3": ("unet_goolenet_tpu_torch/csrc/conv.cu",
+    "fused_conv3x3": ("unet_goolenet_tpu_torch/csrc/conv3x3.cuh",
                       "unet_goolenet_tpu/ops/pallas/conv.py:177"),
+    "conv3x3_dx": ("unet_goolenet_tpu_torch/csrc/conv3x3.cuh",
+                   "unet_goolenet_tpu/ops/pallas/conv.py:190"),
     "conv3x3_dw": ("unet_goolenet_tpu_torch/csrc/conv_dw.cuh",
                    "unet_goolenet_tpu/ops/pallas/conv.py:132"),
-    "fused_convstack2": ("unet_goolenet_tpu_torch/csrc/conv.cu",
+    "fused_convstack2": ("unet_goolenet_tpu_torch/csrc/conv3x3.cuh",
                          "unet_goolenet_tpu/ops/pallas/conv.py:277"),
     "deconv2x2": ("unet_goolenet_tpu_torch/csrc/deconv.cu",
                   "unet_goolenet_tpu/ops/pallas/conv.py:334"),
@@ -854,37 +857,43 @@ def _nchw(t):
 
 
 def conv_cases(n, h, w, cin, cout, per_pass, dtype, dev, seed, dx=True) -> list:
-    """fused_conv3x3 as the trainer calls it (scale 1, no relu), its dx
-    (the same kernel on flipped weights) and conv3x3_dw, at one shape."""
+    """fused_conv3x3 as the trainer calls it (no scale, bias, no relu; the
+    call lays the weight out), its dx conv3x3_dx (reusing the forward's
+    layout, as the backward does) and conv3x3_dw, at one shape; a 3-channel
+    bf16 x goes to the forward and dw padded to 16 channels, as the
+    trainer's Conv3x3 pads it once for both (dw told to take the first 3;
+    the plain versions take the 3). The bf16 forward and dx carry their launch's tiles
+    (ops/kernels/conv.py:conv_plan)."""
     import torch.nn.functional as F
     from unet_goolenet_tpu_torch.ops.kernels import conv as K
 
     g = torch.Generator().manual_seed(seed)
     r = _rand(g, dev)
     x, wt, b = r(n, h, w, cin).to(dtype), r(cout, cin, 3, 3, sc=(9 * cin) ** -0.5), r(cout, sc=0.1)
-    one = torch.ones(cout, device=dev)
     gy = r(n, h, w, cout, sc=1e-3).to(dtype)
-    w_rot = wt.flip(2, 3).transpose(0, 1).contiguous()
-    onei, zeroi = torch.ones(cin, device=dev), torch.zeros(cin, device=dev)
+    xk, wk = K._gemm_input(x), K.conv3x3_weight(wt, dtype)
     wl, bl = wt.to(dtype), b.to(dtype)
     px, label = n * h * w, f"{n}x{h}x{w} {cin}->{cout}"
     flops, es = 18.0 * px * cin * cout, torch.finfo(dtype).bits / 8
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cases = [TCase("fused_conv3x3", label, partial(K.fused_conv3x3, x, wt, one, b, False),
-                   partial(K.fused_conv3x3_ref, x, wt, one, b, False),
+    plan = (lambda d: K.conv_plan(d, n, h, w, cin, cout, sms) if dtype == torch.bfloat16 else None)
+    cases = [TCase("fused_conv3x3", label, partial(K.fused_conv3x3, xk, wt, None, b, False),
+                   partial(K.fused_conv3x3_ref, x, wt, None, b, False),
                    lambda: F.conv2d(_nchw(x), wl, bl, padding=1), flops,
-                   es * (x.numel() + wt.numel() + px * cout) + 8.0 * cout, per_pass),
-             TCase("conv3x3_dw", label, partial(K.conv3x3_dw, x, gy), partial(K.conv3x3_dw_ref, x, gy),
+                   es * (x.numel() + px * cout) + 4.0 * (wt.numel() + cout), per_pass,
+                   plan(False)),
+             TCase("conv3x3_dw", label, partial(K.conv3x3_dw, xk, gy, cin),
+                   partial(K.conv3x3_dw_ref, x, gy),
                    lambda: torch.nn.grad.conv2d_weight(_nchw(x), wt.shape, _nchw(gy), padding=1),
                    flops, es * (x.numel() + gy.numel()) + 4.0 * wt.numel(), per_pass,
                    K.wgrad_plan(9, n, h, w, cin, cout, dtype, sms))]
-    if dx and cin % 64 == 0:
-        cases.append(TCase("fused_conv3x3", f"dx {label}",
-                           partial(K.fused_conv3x3, gy, w_rot, onei, zeroi, False),
-                           partial(K.fused_conv3x3_ref, gy, w_rot, onei, zeroi, False),
+    if dx:
+        cases.append(TCase("conv3x3_dx", label, partial(K.conv3x3_dx, gy, wt, wk),
+                           partial(K.conv3x3_dx_ref, gy, wt),
                            lambda: torch.nn.grad.conv2d_input(_nchw(x).shape, wl, _nchw(gy),
                                                               padding=1),
-                           flops, es * (gy.numel() + wt.numel() + x.numel()), per_pass))
+                           flops, es * (gy.numel() + x.numel()) + 4.0 * wt.numel(), per_pass,
+                           plan(True)))
     return cases
 
 
@@ -968,8 +977,8 @@ def train_cases(n, dtype, dev, seed, ragged=False) -> list:
     if ragged:
         return (conv_cases(n, 20, 28, 128, 64, 1, dtype, dev, seed)
                 + conv_cases(n, 36, 52, 3, 64, 1, dtype, dev, seed + 1)
-                + conv_cases(n, 14, 14, 512, 512, 1, dtype, dev, seed + 5, dx=False)
-                + conv_cases(n, 28, 28, 1024, 256, 1, dtype, dev, seed + 6, dx=False)
+                + conv_cases(n, 14, 14, 512, 512, 1, dtype, dev, seed + 5)
+                + conv_cases(n, 28, 28, 1024, 256, 1, dtype, dev, seed + 6)
                 + pair_cases(n, 20, 128, 64, dtype, dev, seed + 2)
                 + deconv_cases(n, 10, 14, 128, dtype, dev, seed + 3)
                 + deconv_cases(3, 5, 7, 64, dtype, dev, seed + 7)
@@ -977,8 +986,8 @@ def train_cases(n, dtype, dev, seed, ragged=False) -> list:
                 + deconv_cases(n, 7, 9, 512, dtype, dev, seed + 9, cout=256)
                 + pool_cases(n, 20, 28, 64, dtype, dev, seed + 4))
     cases = []
-    for i, (h, cin, cout, k) in enumerate(UNET_CONVS):
-        cases += conv_cases(n, h, h, cin, cout, k, dtype, dev, seed + i)
+    for i, (h, cin, cout, k) in enumerate(UNET_CONVS):   # inc's dx is never taken
+        cases += conv_cases(n, h, h, cin, cout, k, dtype, dev, seed + i, dx=i > 0)
     for i, (h, cin, c) in enumerate(UNET_PAIRS):
         cases += pair_cases(n, h, cin, c, dtype, dev, seed + 100 + i)
     for i, (h, c) in enumerate(UNET_DECONVS):
@@ -988,7 +997,11 @@ def train_cases(n, dtype, dev, seed, ragged=False) -> list:
     return cases
 
 
-REPEATED = ("conv3x3_dw", "deconv2x2_dwdb")   # deterministic by design: held to bitwise repeats
+# deterministic by design, so held to bitwise repeats: the weight gradients
+# (also held to the plain version in float64) and the conv's forward and dx,
+# whose K splits are summed in rank order
+REPEATED = ("conv3x3_dw", "deconv2x2_dwdb", "fused_conv3x3", "conv3x3_dx")
+F64_HELD = REPEATED[:2]
 
 
 def _tup(t) -> tuple:
@@ -997,8 +1010,8 @@ def _tup(t) -> tuple:
 
 def phase_train_kernels(dev) -> dict:
     """Each training kernel against its plain version, the weight
-    gradients also against a second call; returns the bf16 main-shape max
-    |error| per kernel."""
+    gradients and the conv's forward and dx also against a second call;
+    returns the bf16 main-shape max |error| per kernel."""
     errs = {}
     for n, ragged in ((4, False), (2, True)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1012,6 +1025,7 @@ def phase_train_kernels(dev) -> dict:
                         fail(f"{case.name} {dtype} {case.label}: two calls on the same inputs "
                              f"differ")
                     repeats += 1
+                if case.name in F64_HELD:
                     # both against the plain version run in float64 on the same inputs
                     truth = case.plain.func(*(t.double() for t in case.plain.args))
                     for what, got in (("kernel", out), ("plain", ref)):
@@ -1035,16 +1049,16 @@ def phase_train_kernels(dev) -> dict:
                     worst[case.name] = (max(a, err), max(w, rel))
             for name, (a, w) in worst.items():
                 say("kernel", name=name, dtype=dname(dtype),
-                    shapes=("edges: ragged 20x28, cin 3 at 36x52, 14x14 512->512, "
-                            "28x28 1024->256; deconv 10x14, 3x5x7, 1x3x3, 7x9 512->256"
+                    shapes=("edges: ragged 20x28, cin 3 at 36x52, 14x14 512->512 (bf16: K "
+                            "split), 28x28 1024->256; deconv 10x14, 3x5x7, 1x3x3, 7x9 512->256"
                             if ragged else "trainer, batch 4, 224^2"),
                     max_abs_err=f"{a:.3e}", max_rel_err=f"{w:.3e}", tol=f"{KERNEL_TOL[dtype]:.0e}",
                     ok=True)
                 if not ragged and dtype == torch.bfloat16:
                     errs[name] = a
-            say("kernel", check="weight gradients called twice", dtype=dname(dtype),
-                cases=repeats, bitwise_equal=True)
-            for name in REPEATED:
+            say("kernel", check="weight gradients and the conv's forward and dx called twice",
+                dtype=dname(dtype), cases=repeats, bitwise_equal=True)
+            for name in F64_HELD:
                 say("kernel", check="max |error| against float64 / max |value|", name=name,
                     dtype=dname(dtype), kernel=f"{f64[name, 'kernel']:.3e}",
                     plain=f"{f64[name, 'plain']:.3e}")
@@ -1279,7 +1293,7 @@ def time_train(dev) -> dict:
                 fns[f"{dname(dtype)} {i} library"] = case.library
     per_call = {}
     ms = trace_device_ms(fns, launches=per_call)
-    for name in REPEATED:   # the float32 partials one pass writes
+    for name in F64_HELD:   # the float32 partials one pass writes
         for dtype, cs in cases.items():
             mb = sum(c.per_pass * c.plan.partial_bytes for c in cs if c.name == name) / 1e6
             say("timing", what=f"{name}_partials_per_pass", dtype=dname(dtype), batch=4, img=224,
@@ -1292,8 +1306,11 @@ def time_train(dev) -> dict:
             plan = {} if case.plan is None else (
                 dict(chunks=case.plan.chunks, partial_mb=f"{case.plan.partial_bytes / 1e6:.3f}")
                 if hasattr(case.plan, "chunks") else
-                dict(tiles=f"{case.plan.mtiles}x{case.plan.ntiles}", splits=case.plan.splits,
-                     launches_per_call=f"{per_call[f'{dname(dtype)} {i} kernel']:g}"))
+                dict(tiles=f"{case.plan.mtiles}x{case.plan.ntiles}", splits=case.plan.splits))
+            if hasattr(case.plan, "bm"):   # the conv's: its M tile and N tile
+                plan.update(m_tile=f"{case.plan.R}x{case.plan.S}", n_tile=case.plan.bn)
+            if case.name in ("fused_conv3x3", "conv3x3_dx") or hasattr(case.plan, "ktiles"):
+                plan.update(launches_per_call=f"{per_call[f'{dname(dtype)} {i} kernel']:g}")
             say("timing", what=case.name, shape=repr(case.label), dtype=dname(dtype), batch=4,
                 device_ms=f"{km:.4f}", plain_device_ms=f"{pm:.4f}",
                 library_device_ms="null" if lm is None else f"{lm:.4f}",

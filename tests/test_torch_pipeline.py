@@ -20,12 +20,17 @@ import jax.numpy as jnp
 from PIL import Image
 
 from test_torch_models import jax_variables, port_models
+from unet_goolenet_tpu.data.datasets import _imread as jax_imread
 from unet_goolenet_tpu.models import GoogLeNetClassifier as JGNet
 from unet_goolenet_tpu.models import UNetTaskAligWeight as JUNet
 from unet_goolenet_tpu.ops import pallas as pk
 from unet_goolenet_tpu.pipeline import TwoStagePipeline as JPipeline
 from unet_goolenet_tpu_torch.apps import infer_e2e
+from unet_goolenet_tpu_torch.models import GoogLeNetClassifier, load_reference_state_dict
 from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline, engine, preprocess_gray
+from unet_goolenet_tpu_torch.train.checkpoint import CheckpointManager
+from unet_goolenet_tpu_torch.train.optim import make_adamw
+from unet_goolenet_tpu_torch.train.seg import SegState
 from torch_threads import torch_threads  # noqa: F401  (autouse)
 
 pk.interpret_mode(True)
@@ -104,35 +109,56 @@ def test_pipeline_runs_without_tf32(pipes, monkeypatch):
 
 
 def write_fixture(tmp_path, pipe_models):
-    """3 seeded gray PNGs of two native sizes and two reference-named
-    checkpoints ({'net': ...} and bare)."""
+    """Seeded images of two native sizes: 3 gray PNGs, an RGB PNG and an RGB
+    JPEG (whose gray images PIL's convert("L") and cv2 decode differently);
+    and checkpoints with the reference's names: the UNet as the port's
+    trainer saves it (CheckpointManager: {"model", "optimizer", "epoch"}),
+    the classifier cut to 4 classes as {'net': ...} and bare. Returns the
+    image directory, the UNet's snapshot and the 4-class classifier."""
     unet, gnet = pipe_models
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
     rng = np.random.default_rng(33)
     for name, (h, w) in (("10.png", (35, 45)), ("2.png", (35, 45)), ("33.png", (30, 42))):
         Image.fromarray(rng.integers(0, 256, (h, w), dtype=np.uint8)).save(img_dir / name)
-    torch.save({"net": unet.state_dict()}, tmp_path / "unet.pt")
-    torch.save(gnet.state_dict(), tmp_path / "gnet.pt")
-    return img_dir
+    Image.fromarray(rng.integers(0, 256, (35, 45, 3), dtype=np.uint8)).save(img_dir / "5.png")
+    Image.fromarray(rng.integers(0, 256, (30, 42, 3), dtype=np.uint8)).save(img_dir / "7.jpg",
+                                                                           quality=90)
+    snapshot = CheckpointManager(str(tmp_path / "ckpt")).save_best_loss(
+        SegState(unet, make_adamw(unet.parameters())), 3)
+    gnet4 = GoogLeNetClassifier(4)
+    gnet4.load_state_dict({k: v[:4] if k.startswith("googlenet.fc.") else v
+                           for k, v in gnet.state_dict().items()})
+    torch.save({"net": gnet4.state_dict()}, tmp_path / "gnet.pt")
+    torch.save(gnet4.state_dict(), tmp_path / "gnet_bare.pt")
+    return img_dir, snapshot, gnet4.eval()
 
 
 def test_infer_e2e_cli_writes_result(tmp_path):
+    """The CLI grades every image as the pipeline does, from the port
+    trainer's own UNet snapshot and a 4-class classifier (--num-classes),
+    with each image (gray, RGB PNG, JPEG) read exactly as the JAX app reads
+    it; a bare state dict loads like the wrapped ones."""
     uv, gv = jax_variables(S, seed=13)
-    models = port_models(uv, gv)
-    img_dir = write_fixture(tmp_path, models)
+    unet, gnet = port_models(uv, gv)
+    img_dir, snapshot, gnet4 = write_fixture(tmp_path, (unet, gnet))
     out = infer_e2e.main(["--device", "cpu", "--image-dir", str(img_dir),
-                          "--unet-checkpoint", str(tmp_path / "unet.pt"),
+                          "--unet-checkpoint", snapshot,
                           "--gnet-checkpoint", str(tmp_path / "gnet.pt"),
                           "--out-dir", str(tmp_path / "out"), "--img-size", str(S),
-                          "--batch-size", "2"])
+                          "--batch-size", "2", "--num-classes", "4"])
     lines = open(out).read().splitlines()
-    pipe = TwoStagePipeline(*models, img_size=S, device="cpu")
+    pipe = TwoStagePipeline(unet, gnet4, img_size=S, device="cpu")
     expected = []
-    for stem in ("2", "10", "33"):
-        gray = infer_e2e.read_gray(str(img_dir / f"{stem}.png")).astype(np.float32)
-        expected.append(f"{stem} {int(pipe.infer_grades(torch.from_numpy(gray[None]))[0])}")
+    for name in ("2.png", "5.png", "7.jpg", "10.png", "33.png"):
+        gray = infer_e2e.read_gray(str(img_dir / name))
+        np.testing.assert_array_equal(gray, jax_imread(str(img_dir / name), True), err_msg=name)
+        grade = int(pipe.infer_grades(torch.from_numpy(gray[None].astype(np.float32)))[0])
+        expected.append(f"{name.replace('.png', '')} {grade}")
     assert lines == expected
+    bare = load_reference_state_dict(str(tmp_path / "gnet_bare.pt"), GoogLeNetClassifier(4))
+    for k, v in bare.state_dict().items():
+        torch.testing.assert_close(v, gnet4.state_dict()[k], rtol=0, atol=0)
 
 
 def test_infer_e2e_cuda_without_device_raises(tmp_path):

@@ -11,6 +11,11 @@ for the conv, a multi-tile deconv, exact ties in the pool). Gradients are
 taken of sum(f(x) * c) for a seeded cotangent c on both sides. Tolerance:
 1e-4 of the reference's max |value| in float32, for values and gradients.
 
+The conv's plan (`conv_plan`) is plain Python, held here at the trainer's
+16 conv shapes and the kernel tests' ragged edges, forward and dx: every
+output pixel and channel is written by one block, once, each tile's K
+splits partition its 9 taps x input channels, and the grid is one wave.
+`conv3x3_dx_ref` is held to the JAX VJP's dx of `fused_conv3x3` (1e-4).
 The weight-gradient kernels' plan (`wgrad_plan`) is plain Python, held here
 at the trainer's 16 conv and 4 deconv shapes: every output tile of every
 item is computed by exactly one block, the partial scratch is what the
@@ -22,7 +27,8 @@ On a GPU host without JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_train_kernels.py`. There each kernel, forward and every
 backward, is held to its plain version at 1e-4 (float32, TF32 off) and 2e-2
 (bfloat16) of the plain result's max |value|, at ragged sizes, cin = 3 and
-the plan's edges, and the weight gradients to a second call bit for bit.
+the plan's edges, and the weight gradients and the conv's split-K forward
+and dx to a second call bit for bit.
 """
 
 from collections import Counter
@@ -97,6 +103,21 @@ def test_fused_conv3x3_matches_pallas(pk, n, h, w, cin, cout, relu):
         close(g, r, name)
 
 
+def test_conv3x3_dx_ref_matches_jax_vjp(pk):
+    """conv3x3_dx_ref(g * scale, w) is the dx of the JAX kernel's VJP
+    (relu off: gc = g * scale), float32, 1e-4 of its max |value|."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(10)
+    x, wt = rand(rng, 1, 8, 12, 16), rand(rng, 32, 16, 3, 3, sc=(9 * 16) ** -0.5)
+    scale, bias, g = np.abs(rand(rng, 32)) + 0.5, rand(rng, 32, sc=0.1), rand(rng, 1, 8, 12, 32)
+    _, vjp = jax.vjp(lambda x_: pk.fused_conv3x3(x_, hwio(wt), jnp.asarray(scale),
+                                                 jnp.asarray(bias), False), jnp.asarray(x))
+    t = torch.from_numpy
+    close(K.conv3x3_dx_ref(t(g * scale), t(wt)).numpy(), np.asarray(vjp(jnp.asarray(g))[0]), "dx")
+
+
 def test_fused_convstack2_matches_pallas(pk):
     rng = np.random.default_rng(2)
     x = rand(rng, 2, 8, 12, 16)
@@ -144,8 +165,8 @@ def test_max_pool_matches_pallas(pk, ties):
 
 def test_cpu_wrappers_take_the_plain_versions():
     """On CPU tensors every wrapper returns its plain version's result and
-    counts no launch; the conv's dx is skipped when its input needs no
-    gradient."""
+    counts no launch (dw also of an x padded past the conv's channels); the
+    conv's dx is skipped when its input needs no gradient."""
     rng = np.random.default_rng(5)
     t = lambda *s: torch.from_numpy(rand(rng, *s))
     before = {fn.__name__: fn.launches for fn in K.WRAPPERS}
@@ -153,7 +174,12 @@ def test_cpu_wrappers_take_the_plain_versions():
     torch.testing.assert_close(K.fused_conv3x3(x, w, s, b, True),
                                K.fused_conv3x3_ref(x, w, s, b, True), rtol=0, atol=0)
     g = t(1, 6, 10, 64)
-    torch.testing.assert_close(K.conv3x3_dw(x, g), K.conv3x3_dw_ref(x, g), rtol=0, atol=0)
+    torch.testing.assert_close(K.conv3x3_dx(g, w), K.conv3x3_dx_ref(g, w), rtol=0, atol=0)
+    torch.testing.assert_close(K.fused_conv3x3(x, w, None, None, False),
+                               K.fused_conv3x3_ref(x, w, None, None, False), rtol=0, atol=0)
+    for xk in (x, torch.nn.functional.pad(x, (0, 13))):   # the trainer's x, padded to 16
+        torch.testing.assert_close(K.conv3x3_dw(xk, g, 3), K.conv3x3_dw_ref(x, g), rtol=0,
+                                   atol=0)
     xd, wd, bd = t(1, 3, 5, 64), t(64, 64, 2, 2), t(64)
     torch.testing.assert_close(K.deconv2x2(xd, wd, bd), K.deconv2x2_ref(xd, wd, bd))
     xp = t(1, 6, 10, 64)
@@ -164,7 +190,7 @@ def test_cpu_wrappers_take_the_plain_versions():
     assert wg.grad is not None and x.grad is None
 
 
-# ------------------------------------------------------------------ the weight-gradient plan
+# ------------------------------------------------------------------ the conv's plan
 
 SMS = 132   # an H100 SXM's SMs
 # the trainer's 3x3 convs (size, cin, cout, calls per pass) and transposed
@@ -174,7 +200,45 @@ TRAIN_CONVS = ((224, 3, 64, 1), (112, 64, 128, 1), (112, 128, 128, 3), (56, 128,
                (28, 1024, 256, 1), (28, 256, 256, 1), (56, 512, 128, 1), (56, 128, 128, 1),
                (112, 256, 64, 1), (112, 64, 64, 1), (224, 64, 64, 3), (224, 128, 64, 1))
 TRAIN_DECONVS = ((14, 512), (28, 256), (56, 128), (112, 64))
+# the conv kernel tests' edges (n, h, w, cin, cout): a ragged level, cin = 3
+# on a ragged image (dx: 3 output channels), K split at 14^2, the widest K
+CONV_EDGES = ((2, 20, 28, 128, 64), (2, 36, 52, 3, 64), (2, 14, 14, 512, 512),
+              (2, 28, 28, 1024, 256))
 
+
+@pytest.mark.parametrize("dx", [False, True], ids=["forward", "dx"])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(4, h, h, ci, co) for h, ci, co, _ in TRAIN_CONVS]
+                         + list(CONV_EDGES))
+def test_conv_plan_covers_every_output_once(n, h, w, cin, cout, dx):
+    """Every output pixel and channel of the conv's forward or dx lies in
+    one tile, which one cluster takes; the tile's K splits partition its 9
+    taps x input channels, and its ranks share out its 16-byte output
+    chunks, each summed over the splits by one rank: so each output is
+    written once. The grid stays within one block an SM."""
+    plan = K.conv_plan(dx, n, h, w, cin, cout, SMS)
+    cols, kc = (cin, cout) if dx else (cout, cin)   # channels past cin are zeros
+    assert plan.cols == cols and plan.bn in (64, 128)
+    assert plan.R * (plan.S + 2) <= plan.bm == K.CV_BM[plan.bn] and plan.S + 2 <= K.CV_HW
+    pixels = np.concatenate([plan.pixels(mt) for mt in range(plan.mtiles)])
+    np.testing.assert_array_equal(np.bincount(pixels, minlength=n * h * w), 1)
+    assert plan.ntiles * plan.bn >= cols > (plan.ntiles - 1) * plan.bn
+    taken, ks = Counter(), {}
+    for rank, cid, tiles, k0, count in plan.blocks():
+        assert count >= 1 and (cid, rank) not in ks
+        ks[cid, rank] = range(k0, k0 + count)
+        taken.update(tiles)
+    assert sorted(taken) == list(range(plan.tiles)) and set(taken.values()) == {plan.splits}
+    for cid in range(plan.clusters):   # each tile's splits: every (tap, channel) once
+        pairs = Counter((kt % 9, c) for z in range(plan.splits) for kt in ks[cid, z]
+                        for c in range(K.CV_BK * (kt // 9), min(kc, K.CV_BK * (kt // 9 + 1))))
+        assert len(pairs) == 9 * kc and set(pairs.values()) == {1}
+    chunks = sorted(c for z in range(plan.splits) for c in plan.stores(z))
+    assert chunks == list(range(plan.R * plan.S * plan.bn // 8))
+    assert plan.grid <= SMS and plan.splits <= K.CV_MAX_SPLIT
+    assert plan.kper % 9 == 0   # whole slabs: a split stages whole halos
+
+
+# ------------------------------------------------------------------ the weight-gradient plan
 
 def tile_floats(plan, mt: int, cin: int) -> int:
     """Floats the kernel's epilogue writes for an output tile in input-channel
@@ -307,18 +371,33 @@ def counted(fn, *args):
                                             (1, 9, 13, 128, 64), (4, 14, 14, 512, 512),
                                             (2, 28, 28, 1024, 256)])
 def test_conv3x3_kernels_match_plain(cuda, dtype, n, h, w, cin, cout):
-    """Ragged levels, cin = 3, and the weight-gradient plan's edges: 14x14
-    512->512 in one chunk, 28x28 1024->256 with the most output tiles; the
-    weight gradient repeats bit for bit."""
+    """Ragged levels, cin = 3 (dx: 3 output channels), and the plans'
+    edges: 14x14 512->512, whose bf16 forward and dx split K and whose
+    weight gradient takes one chunk, 28x28 1024->256 with the most output
+    tiles; the forward (no scale or bias, and both with relu), dx and the
+    weight gradient each repeat bit for bit. A 3-channel bf16 x also goes
+    to the forward and dw padded to 16 channels, as the trainer's Conv3x3
+    passes it."""
     r = on_card(cuda, dtype, 6)
     x, wt = r(n, h, w, cin).to(dtype), r(cout, cin, 3, 3, sc=(9 * cin) ** -0.5)
     s, b, g = r(cout).abs() + 0.5, r(cout, sc=0.1), r(n, h, w, cout).to(dtype)
-    for relu in (True, False):
-        agrees(counted(K.fused_conv3x3, x, wt, s, b, relu), K.fused_conv3x3_ref(x, wt, s, b, relu),
-               dtype)
-    dw = counted(K.conv3x3_dw, x, g)
-    agrees(dw, K.conv3x3_dw_ref(x, g), dtype)
-    assert torch.equal(dw, K.conv3x3_dw(x, g))
+    for args in ((s, b, True), (None, b, False), (None, None, False)):
+        y = counted(K.fused_conv3x3, x, wt, *args)
+        agrees(y, K.fused_conv3x3_ref(x, wt, *args), dtype)
+        assert torch.equal(y, K.fused_conv3x3(x, wt, *args))
+    wk = K.conv3x3_weight(wt, dtype)
+    dx = counted(K.conv3x3_dx, g, wt, wk)
+    agrees(dx, K.conv3x3_dx_ref(g, wt), dtype)
+    assert torch.equal(dx, K.conv3x3_dx(g, wt))
+    y_ref = K.fused_conv3x3_ref(x, wt, None, None, False)
+    dw_ref = K.conv3x3_dw_ref(x, g)
+    for xk in (x, K._gemm_input(x)):
+        agrees(counted(K.fused_conv3x3, xk, wt, None, None, False), y_ref, dtype)
+        dw = counted(K.conv3x3_dw, xk, g, cin)
+        agrees(dw, dw_ref, dtype)
+        assert torch.equal(dw, K.conv3x3_dw(xk, g, cin))
+    if dtype == torch.bfloat16 and (h, cin) == (14, 512):
+        assert K.conv_plan(False, n, h, w, cin, cout, 132).splits > 1
 
 
 @pytest.mark.cuda

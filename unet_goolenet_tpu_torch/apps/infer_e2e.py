@@ -11,9 +11,13 @@ file stem (test.py:90-96).
     python -m unet_goolenet_tpu_torch.apps.infer_e2e --image-dir imgs \
         --unet-checkpoint unet.pt --gnet-checkpoint gnet.pt --bf16
 
-Checkpoints are torch files with the reference's parameter names
-(`{'net': state_dict}` or a bare state dict). With `--device cuda` (the
-default) and no CUDA device, the run fails; it never falls back to the CPU.
+Images are read as the JAX app reads them (`data/datasets.py:_imread`, cv2's
+grayscale decode where cv2 imports). Checkpoints are torch files with the
+reference's parameter names: the port trainer's snapshots (`{'model': ...}`,
+train/checkpoint.py), `{'net': state_dict}` or a bare state dict.
+`--num-classes` sizes the classifier (default 6), as in the JAX CLI. With
+`--device cuda` (the default) and no CUDA device, the run fails; it never
+falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ import time
 
 import numpy as np
 import torch
-from PIL import Image
 
+from unet_goolenet_tpu_torch.data.datasets import _imread
 from unet_goolenet_tpu_torch.models import (
     GoogLeNetClassifier, UNetTaskAligWeight, load_reference_state_dict)
 from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline
@@ -39,6 +43,7 @@ def parse_args(argv=None):
     p.add_argument("--out-dir", default="test_results")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--img-size", type=int, default=224)
+    p.add_argument("--num-classes", type=int, default=6)
     p.add_argument("--bf16", action="store_true", help="bfloat16 inference")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return p.parse_args(argv)
@@ -53,9 +58,9 @@ def numeric_stem(name: str) -> int:
 
 
 def read_gray(path: str) -> np.ndarray:
-    """(H, W) uint8 grayscale at native resolution."""
-    with Image.open(path) as img:
-        return np.asarray(img.convert("L"))
+    """(H, W) uint8 grayscale at native resolution, decoded as the JAX app
+    decodes it."""
+    return _imread(path, True)
 
 
 def grade_dir(pipe: TwoStagePipeline, image_dir: str, batch_size: int) -> list:
@@ -86,7 +91,7 @@ def main(argv=None):
         raise RuntimeError("--device cuda: no CUDA device is available")
     unet = load_reference_state_dict(
         args.unet_checkpoint, UNetTaskAligWeight(1, img_size=args.img_size))
-    gnet = load_reference_state_dict(args.gnet_checkpoint, GoogLeNetClassifier(6))
+    gnet = load_reference_state_dict(args.gnet_checkpoint, GoogLeNetClassifier(args.num_classes))
     pipe = TwoStagePipeline(unet, gnet, img_size=args.img_size, device=device,
                             dtype=torch.bfloat16 if args.bf16 else torch.float32)
     os.makedirs(args.out_dir, exist_ok=True)

@@ -11,23 +11,30 @@
 // dw is _dw_kernel) and :fused_convstack2 (_stack2_kernel). dscale and
 // dbias stay plain reductions, as in the JAX VJP.
 //
-// Forward and dx: one launch of dense_conv.cuh's conv_kernel in AFFINE mode
-// (out = acc * scale + bias, then relu if asked). cin may be any count (the
+// Weights: one launch a forward call lays torch's float32 (cout, cin, 3, 3)
+// out for both the forward and dx (conv3x3_weight_launch; float32 writes
+// dx's layout only for a forward whose backward takes dx); the backward
+// reuses it.
+// Forward and dx in bf16: conv3x3.cuh's conv3x3_gemm (TMA + wgmma implicit
+// GEMM; tiles and K split from ops/kernels/conv.py:conv_plan). In float32:
+// one launch of dense_conv.cuh's conv_kernel in AFFINE mode (out = acc *
+// scale + bias, then relu if asked) on FMA; cin may be any count (the
 // UNet's first conv has 3): the kernel stages the slab beyond cin as zeros
-// and the host pads the weights' cin to 64 with zeros; cout is a multiple
+// and the weights carry cin rounded up to 64 with zeros; cout is a multiple
 // of 64. dw: one launch of conv_dw.cuh's wgrad_kernel with K = 3 (bf16: TMA
 // boxes into a 4-stage ring and wgmma, 3 warpgroups of 3 taps; float32: a
 // cp.async ring and FMA; a pixel tile fitted to the level's width; the
 // pixels split into chunks by ops/kernels/conv.py:wgrad_plan and the chunks
 // summed in a fixed order inside the same launch), written straight into
-// torch's (cout, cin, 3, 3); the host pads a ragged x (cin = 3) to 8
-// channels.
+// torch's (cout, cin, 3, 3); the trainer pads a ragged bf16 x (cin = 3)
+// to 16 channels once a forward, for the forward and dw, which reads only
+// x's first cin channels (the host pads a float32 x to 8 for dw).
 //
-// The pair: two AFFINE launches with relu, the intermediate (N, H, W, cmid)
-// through device memory (mostly L2), as pool + down1 (down1.cu) does. On
-// chip it would need cmid channels of the intermediate over the tile and its
-// halo, 10 x 18 x 512 x 2 = 184 KB in bf16 at cmid = 512, beside the second
-// conv's weight slab (74 KB): over a block's 227 KB.
+// The pair: two forward launches with relu, the intermediate (N, H, W,
+// cmid) through device memory (mostly L2), as pool + down1 (down1.cu) does.
+// On chip it would need cmid channels of the intermediate over the tile and
+// its halo, 10 x 18 x 512 x 2 = 184 KB in bf16 at cmid = 512, beside the
+// second conv's weights: over a block's 227 KB.
 //
 // Bound on an H100: the 3x3 conv's 18 * cin * cout FLOP a pixel on the bf16
 // tensor cores (989 TFLOP/s) or float32 FMA (67 TFLOP/s) against x, w and y
@@ -35,47 +42,87 @@
 // GFLOP against 51 MB in bf16, ~0.015 ms either way; dw does the same
 // operations against x and g (bounds of the whole pass: conv_dw.cuh);
 // chip_smoke.py computes each shape's bound.
-#include "conv_dw.cuh"
+#include "conv3x3.cuh"
 
-template <typename T>
-static cudaError_t launch_conv3x3(const void* x, const void* w, const float* scale,
-                                  const float* bias, void* out, int N, int H, int W, int cin,
-                                  int cout, int relu, cudaStream_t s) {
+// dtype: 0 = float32, 1 = bfloat16. w torch's (cout, cin, 3, 3) float32.
+// bf16: wk (9, cout, cin8) bf16, cin8 = cin rounded up to 8 (wd unused);
+// float32: wk dense_conv.cuh's forward layout (cout/64, 9, cin64, 64) and wd
+// dx's, (cin64/64, 9, cout, 64), cin64 = cin rounded up to 64; wd null for a
+// forward no dx call will follow (then not written).
+extern "C" int conv3x3_weight_launch(int dtype, const float* w, void* wk, float* wd, int cin,
+                                     int cout, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cin < 1 || cout % common::C || cout < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int cin8 = (cin + 7) / 8 * 8, total = cout * cin8;
+    conv3::weight_bf16_kernel<<<(total + 255) / 256, 256, 0, s>>>(
+        w, static_cast<__nv_bfloat16*>(wk), cin, cin8, cout);
+  } else if (dtype == 0) {
+    const int cin64 = (cin + common::C - 1) / common::C * common::C, total = cout * cin64;
+    conv3::weight_f32_kernel<<<(total + 255) / 256, 256, 0, s>>>(w, static_cast<float*>(wk), wd,
+                                                                 cin, cin64, cout);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// bf16, one conv3x3_gemm launch. dx = 0: the forward, src x (N, H, W, cin16)
+// (cin16 = cin rounded up to 16, zeros beyond cin), out (N, H, W, cout); dx =
+// 1: src gc (N, H, W, cout), out (N, H, W, cin), scale and bias null. wk
+// from conv3x3_weight_launch; scale, bias (out channels,) float32 or null.
+// R, S, bn, splits and clusters from conv_plan (clusters: the persistent
+// grid's, lowered to what the card runs at once for a split).
+extern "C" int conv3x3_gemm_launch(int dx, const void* src, const void* wk, const float* scale,
+                                   const float* bias, void* out, int N, int H, int W, int cin,
+                                   int cout, int relu, int R, int S, int bn, int splits,
+                                   int clusters, void* stream) {
+  using namespace conv3;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cin8 = (cin + 7) / 8 * 8;
+  if (N < 1 || H < 1 || W < 1 || cin < 1 || cout % common::C || cout < 1 || R < 1 || S < 1 ||
+      S + 2 > MAX_HW || (bn != 64 && bn != 128) || splits < 1 || splits > MAX_SPLIT ||
+      clusters < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.scale = scale; a.bias = bias; a.out = out; a.H = H; a.W = W; a.relu = relu;
+  a.ncols = dx ? cin : cout;
+  a.C = dx ? cout : (cin + 15) / 16 * 16;
+  a.R = R; a.S = S; a.rtiles = (H + R - 1) / R; a.ctiles = (W + S - 1) / S;
+  a.mtiles = N * a.rtiles * a.ctiles;
+  a.tiles = a.mtiles * ((a.ncols + bn - 1) / bn);
+  a.slabs = (a.C + BK - 1) / BK;
+  a.splits = splits; a.sper = (a.slabs + splits - 1) / splits;
+  a.clusters = std::min(clusters, a.tiles);
+  if ((splits - 1) * a.sper >= a.slabs) return (int)cudaErrorInvalidValue;
+  // BN = 64 tiles are 256 rows (two m64 blocks a warpgroup), BN = 128 tiles 128
+  if (dx) {
+    if (bn == 128) return launch<128, true, 1, 4>(a, src, N, wk, cin8, cout, s);
+    return launch<64, true, 2, 4>(a, src, N, wk, cin8, cout, s);
+  }
+  if (bn == 128) return launch<128, false, 1, 4>(a, src, N, wk, cin8, cout, s);
+  if (a.C == 16) return launch<64, false, 2, 1>(a, src, N, wk, cin8, cout, s);
+  return launch<64, false, 2, 4>(a, src, N, wk, cin8, cout, s);
+}
+
+// float32, one conv_kernel launch: x (N, H, W, cin), w the blocked layout
+// of conv3x3_weight_launch (forward: cin64 rows a tap; dx: its wd, with cin
+// = the forward's cout); scale, bias (cout,) float32 or null (1 and 0); out
+// (N, H, W, cout).
+extern "C" int conv3x3_launch(const float* x, const float* w, const float* scale,
+                              const float* bias, float* out, int N, int H, int W, int cin,
+                              int cout, int relu, void* stream) {
   using namespace dense;
   ConvArgs a{};
   a.src0 = x; a.c0 = cin; a.cin = (cin + common::C - 1) / common::C * common::C;
   a.w = w; a.b = bias; a.scale = scale; a.relu = relu; a.out = out; a.cout = cout;
   a.H = H; a.W = W;
-  return launch<T, 3, DENSE, AFFINE>(a, N, cout / common::C, s);
-}
-
-// dtype: 0 = float32, 1 = bfloat16. x (N, H, W, cin); w blocked
-// ([cout/64][9][64][cin64] bf16, [cout/64][9][cin64][64] float, cin64 = cin
-// rounded up to 64, zeros beyond cin); scale, bias (cout,) float32; out
-// (N, H, W, cout). Returns a cudaError_t (0 on success).
-extern "C" int conv3x3_launch(int dtype, const void* x, const void* w, const float* scale,
-                              const float* bias, void* out, int N, int H, int W, int cin,
-                              int cout, int relu, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_conv3x3<float>(x, w, scale, bias, out, N, H, W, cin, cout, relu, s);
-  if (dtype == 1)
-    return launch_conv3x3<__nv_bfloat16>(x, w, scale, bias, out, N, H, W, cin, cout, relu, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The pair: mid (N, H, W, cmid) is scratch. Weights as conv3x3_launch's.
-extern "C" int convstack2_launch(int dtype, const void* x, const void* w1, const float* s1,
-                                 const float* b1, const void* w2, const float* s2,
-                                 const float* b2, void* mid, void* out, int N, int H, int W,
-                                 int cin, int cmid, int cout, void* stream) {
-  int err = conv3x3_launch(dtype, x, w1, s1, b1, mid, N, H, W, cin, cmid, 1, stream);
-  if (err != 0) return err;
-  return conv3x3_launch(dtype, mid, w2, s2, b2, out, N, H, W, cmid, cout, 1, stream);
+  return launch<float, 3, DENSE, AFFINE>(a, N, cout / common::C,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // dw (cout, cin, 3, 3) float32 of x (N, H, W, cx), cx >= cin a multiple of
-// 8 (zeros beyond cin), and gc (N, H, W, cout); tw (the pixel tile's width:
+// 8 (the channels past cin not read), and gc (N, H, W, cout); tw (the pixel tile's width:
 // 16 or 32 for bf16, 16, 28 or 14 for float32), chunks, per_chunk and
 // reduce (0 one chunk, 1 a cluster, 2 the grid) from wgrad_plan; for a grid
 // reduce, part (chunks, 9 cin cout) float32 scratch and bar two unsigned

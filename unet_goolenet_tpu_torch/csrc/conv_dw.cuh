@@ -102,7 +102,8 @@ enum Reduce { ONE = 0, CLUSTER = 1, GRID = 2 };
 struct WgArgs {
   const void* x;
   const void* g;
-  int cx, cin;            // x's channels per pixel (a multiple of 8); dw's input channels
+  int cx, cin;            // x's channels per pixel (a multiple of 8, >= cin: those past
+                          // cin are not read); dw's input channels
   int cg;                 // g's channels per pixel
   int N, H, W;            // x's size
   int tiles_x, tiles;     // K = 3: pixel tiles per row, per image
@@ -179,7 +180,7 @@ __device__ __forceinline__ void load_item(T* st, const WgArgs& a, int item, int 
     for (int i = threadIdx.x; i < IR * IC * CH; i += G::THREADS) {
       const int q = i % CH, pix = i / CH;
       const int Y = y0 - 1 + pix / IC, X = x0 - 1 + pix % IC, ch = ci0 + V * q;
-      const bool ok = Y >= 0 && Y < a.H && X >= 0 && X < a.W && ch < a.cx;
+      const bool ok = Y >= 0 && Y < a.H && X >= 0 && X < a.W && ch < a.cin;
       cp_async16(st + pix * G::XP + V * q,
                  ok ? x + (((size_t)n * a.H + Y) * a.W + X) * a.cx + ch : x, ok);
     }
@@ -527,7 +528,7 @@ __global__ void __launch_bounds__(Geo<T, K, TW>::THREADS, 1)
   const int nt = blockIdx.x / a.chunks % a.ntiles;   // a cluster holds one tile's chunks
   const int i0 = chunk * a.per_chunk, count = min(a.items - i0, a.per_chunk);
   const bool db = K == 1 && mt == 0;   // this block also sums g's columns
-  const int valid = min(C, a.cx - mt * C);   // channels of the slab that x holds
+  const int valid = min(C, a.cin - mt * C);   // channels of the slab that dw takes
 
   Acc<T, K, TW> acc;
   float dbs = 0.f;

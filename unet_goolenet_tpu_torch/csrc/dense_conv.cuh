@@ -18,7 +18,7 @@
 //             a 1x1 head with ncls outputs, so that only the logits reach
 //             device memory
 //     AFFINE  out = acc * scale + b, then relu if a.relu: the fused conv +
-//             BatchNorm epilogue of conv.cu
+//             BatchNorm epilogue of conv.cu; scale and b may be null (1, 0)
 // Every stored value is rounded to T, as the TPU kernels round them; the
 // arithmetic is float32.
 //
@@ -72,7 +72,7 @@ struct ConvArgs {
   const void* wout;      // HEAD: (64, ncls) [channel][class]
   const float* bout;     // HEAD: (ncls,)
   int ncls;
-  const float* scale;    // AFFINE: (cout,)
+  const float* scale;    // AFFINE: (cout,) or null
   int relu;              // AFFINE: 1 = relu after the affine epilogue
 };
 
@@ -170,14 +170,24 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
   __syncthreads();   // every warp is done with xin and ws
 
   const int ncb = a.cout / C;   // DECONV: output blocks per parity
-  const float* bias = a.b + (MODE == DECONV ? nb % ncb : nb) * C;
+  const float* bias =
+      MODE != AFFINE || a.b ? a.b + (MODE == DECONV ? nb % ncb : nb) * C : nullptr;
   conv.visit([&](int p, int co, float v0, float v1) {
-    if constexpr (MODE == AFFINE) {
-      v0 *= a.scale[nb * C + co];
-      v1 *= a.scale[nb * C + co + 1];
+    if constexpr (MODE == AFFINE) {   // scale and bias may be null (1 and 0)
+      if (a.scale) {
+        v0 *= a.scale[nb * C + co];
+        v1 *= a.scale[nb * C + co + 1];
+      }
+      if (bias) {
+        v0 += bias[co];
+        v1 += bias[co + 1];
+      }
+    } else {
+      v0 += bias[co];
+      v1 += bias[co + 1];
     }
-    yt[p * YT_PITCH + co] = v0 + bias[co];
-    yt[p * YT_PITCH + co + 1] = v1 + bias[co + 1];
+    yt[p * YT_PITCH + co] = v0;
+    yt[p * YT_PITCH + co + 1] = v1;
   });
   __syncthreads();
 

@@ -1,10 +1,12 @@
 """State dicts for the port's models.
 
-* `load_reference_state_dict(path, model)` loads a reference checkpoint
-  (`{'net': state_dict}` or a bare state dict, reference torch names) into a
-  port model. The reference's declared-but-never-called parameters are
-  dropped first (fc1/fc2 of UNetTaskAligWeight, CoordAtt3's `deformabel`,
-  the transformer's `cross_attention_seg`); everything else loads strictly.
+* `load_reference_state_dict(path, model)` loads a checkpoint with the
+  reference's torch names into a port model: the port trainer's snapshot
+  (`{'model': state_dict, ...}`, train/checkpoint.py), the reference's
+  `{'net': state_dict}` or a bare state dict. The reference's
+  declared-but-never-called parameters are dropped first (fc1/fc2 of
+  UNetTaskAligWeight, CoordAtt3's `deformabel`, the transformer's
+  `cross_attention_seg`); everything else loads strictly.
 * `unet_from_jax(variables)` / `gnet_from_jax(variables)` invert the JAX
   package's converter (`unet_goolenet_tpu/models/convert.py`): its flax
   variables, given as nested dicts of numpy arrays, become a port state dict.
@@ -30,8 +32,11 @@ _DEAD = re.compile(r"^(fc1|fc2)\.|\.deformabel\.|\.cross_attention_seg\.")
 
 
 def load_reference_state_dict(path: str, model: nn.Module) -> nn.Module:
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    sd = payload["net"] if isinstance(payload, dict) and "net" in payload else payload
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "net"):   # a trainer snapshot, a reference checkpoint
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+            break
     model.load_state_dict({k: v for k, v in sd.items() if not _DEAD.search(k)},
                           strict=True)
     return model

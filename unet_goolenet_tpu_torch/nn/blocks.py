@@ -17,7 +17,7 @@ normalise, as in BatchNorm2d.
 `kernels=True` (off by default, as the JAX package's dispatch is) runs the
 blocks on the CUDA kernels of `ops/kernels/conv.py`, with the same
 parameters: in train mode each 3x3 conv that feeds a BatchNorm is
-`conv3x3(x, w, 1, b, relu=False)`, followed by `batch_norm_train` and relu
+`conv3x3(x, w, None, b, relu=False)` (no scale), followed by `batch_norm_train` and relu
 in torch; the transposed convs run `deconv` and the pools `pool2x2`. In
 eval mode a ConvBatchNorm is `fused_conv3x3` with BatchNorm folded into its
 scale and bias and relu, and a two-block conv stack is `fused_convstack2`.
@@ -93,9 +93,8 @@ def conv_bn_relu(conv: nn.Conv2d, norm: nn.BatchNorm2d, x: torch.Tensor,
         return torch.relu(batch_norm_train(y, norm) if norm.training else norm(y))
     xh = nhwc(x)
     if norm.training:
-        ones = torch.ones(conv.out_channels, device=x.device)
-        b = conv.bias if conv.bias is not None else torch.zeros_like(ones)
-        return torch.relu(batch_norm_train(nchw(K.conv3x3(xh, conv.weight, ones, b, False)), norm))
+        y = K.conv3x3(xh, conv.weight, None, conv.bias, False)
+        return torch.relu(batch_norm_train(nchw(y), norm))
     return nchw(K.conv3x3(xh, conv.weight, *folded_scale_bias(conv, norm), True))
 
 

@@ -6,9 +6,9 @@ Replaces the JAX package's Pallas kernels in
 
   * `fused_conv3x3` <- `fused_conv3x3` (`_fwd_kernel`):
         y = [relu](conv3x3_p1(x, w) * scale + bias)
-    and for its VJP `conv3x3_dw` <- `_dw_kernel` (dx launches
-    `fused_conv3x3` with flipped, io-transposed weights, as the JAX VJP
-    does; dscale and dbias stay plain reductions);
+    and for its VJP `conv3x3_dx` (the JAX VJP runs the forward kernel on
+    flipped, io-transposed weights; here the same GEMM reads them so) and
+    `conv3x3_dw` <- `_dw_kernel`; dscale and dbias stay plain reductions;
   * `fused_convstack2` <- `fused_convstack2` (`_stack2_kernel`): two
     chained `fused_conv3x3` with relu, inference only;
   * `deconv2x2` <- `conv_transpose2x2_pallas` (`_deconv_kernel`), with
@@ -18,18 +18,21 @@ Replaces the JAX package's Pallas kernels in
     `max_pool2x2_bwd` for its backward (plain jnp there: the gradient goes
     to the first maximum of each window, torch's tie rule).
 
-Sources: `csrc/conv.cu` (on `csrc/dense_conv.cuh`), `csrc/deconv.cu` (its
-own TMA + wgmma GEMM; dW/db on `csrc/conv_dw.cuh`), `csrc/conv_dw.cuh` and
-`csrc/pool.cu`; bounds and design notes there. The weight gradients' split
-(`wgrad_plan`) and the transposed conv's tiles (`deconv_plan`) are planned
-here, in plain Python that the CPU tests reach.
+Sources: `csrc/conv.cu` (bf16 forward and dx on `csrc/conv3x3.cuh`'s TMA +
+wgmma GEMM, float32 on `csrc/dense_conv.cuh`), `csrc/deconv.cu` (its own
+TMA + wgmma GEMM; dW/db on `csrc/conv_dw.cuh`), `csrc/conv_dw.cuh` and
+`csrc/pool.cu`; bounds and design notes there. The conv's tiles and K split
+(`conv_plan`), the weight gradients' split (`wgrad_plan`) and the
+transposed conv's tiles (`deconv_plan`) are planned here, in plain Python
+that the CPU tests reach.
 Activations are dense NHWC, float32 or bfloat16; weights keep torch's
 layouts (conv OIHW, transposed conv (Cin, Cout, 2, 2)). The conv's are laid
-out for the kernels at each call, since training changes them every step;
-the transposed conv's forward reads torch's float32 weight as it lies, and
-its dx lays it out once, in one small launch. The kernels accumulate in
-float32 and round each output to the activation dtype; weight gradients are
-float32.
+out once a forward call (`conv3x3_weight`, one launch, since training
+changes them every step) and its dx reuses the layout (float32 writes dx's
+only where a backward will take dx); the transposed
+conv's forward reads torch's float32 weight as it lies, and its dx lays it
+out once, in one small launch. The kernels accumulate in float32 and round
+each output to the activation dtype; weight gradients are float32.
 
 Each wrapper takes its plain version (`*_ref`) only for a tensor on the CPU.
 For a CUDA tensor it launches the kernel or raises. Each counts its calls
@@ -48,7 +51,7 @@ import torch.nn.functional as F
 
 from unet_goolenet_tpu_torch.ops.conv import conv2d, conv_transpose2x2
 from unet_goolenet_tpu_torch.ops.kernels._common import (
-    BLOCK, INT, PTR, blocked_taps, check, dense_channels, dtype_code, launched, lib_fn,
+    BLOCK, DTYPE_CODE, INT, PTR, check, dense_channels, dtype_code, launched, lib_fn,
     round_to, stream, wide)
 from unet_goolenet_tpu_torch.ops.pool import max_pool2d
 
@@ -59,10 +62,22 @@ from unet_goolenet_tpu_torch.ops.pool import max_pool2d
 
 def fused_conv3x3_ref(x, w, scale, bias, relu: bool) -> torch.Tensor:
     """Plain version of `fused_conv3x3`: x (N, H, W, cin); w (cout, cin, 3,
-    3); scale, bias (cout,). The result in x's dtype."""
+    3); scale, bias (cout,) or None (1, 0). The result in x's dtype."""
     dt = x.dtype
-    y = conv2d(wide(x), round_to(w, dt), padding=1) * wide(scale) + wide(bias)
+    y = conv2d(wide(x), round_to(w, dt), padding=1)
+    if scale is not None:
+        y = y * wide(scale)
+    if bias is not None:
+        y = y + wide(bias)
     return (y.relu() if relu else y).to(dt)
+
+
+def conv3x3_dx_ref(g, w) -> torch.Tensor:
+    """Plain version of `conv3x3_dx`: the input gradient of a 3x3 pad-1
+    conv, conv3x3_p1(g, w flipped and io-transposed), g (N, H, W, cout), w
+    (cout, cin, 3, 3) rounded to g's dtype; (N, H, W, cin) in g's dtype."""
+    w_rot = round_to(w, g.dtype).flip(2, 3).transpose(0, 1)
+    return conv2d(wide(g), w_rot, padding=1).to(g.dtype)
 
 
 def conv3x3_dw_ref(x, g) -> torch.Tensor:
@@ -132,13 +147,21 @@ def _cin64(cin: int) -> int:
     return -(-cin // BLOCK) * BLOCK
 
 
-def conv_weights(w: torch.Tensor, dtype) -> torch.Tensor:
-    """(cout, cin, 3, 3) -> the conv kernel's blocked layout in `dtype`, cin
-    padded with zeros to a multiple of 64."""
-    cin = w.shape[1]
-    if cin % BLOCK:
-        w = F.pad(w, (0, 0, 0, 0, 0, _cin64(cin) - cin))
-    return blocked_taps(w.detach(), dtype)
+def _cin8(cin: int) -> int:
+    return -(-cin // 8) * 8
+
+
+def _cin16(cin: int) -> int:
+    return -(-cin // 16) * 16
+
+
+def _gemm_input(x: torch.Tensor) -> torch.Tensor:
+    """x as the conv's forward takes it: bf16 with its channels padded with
+    zeros to a multiple of 16 (a wgmma k step of the bf16 conv; 16-byte rows
+    for TMA and the weight gradient's staging copies), float32 (FMA, any
+    channel count) as it is; itself where nothing is padded."""
+    c = x.shape[-1]
+    return x if c % 16 == 0 or x.dtype != torch.bfloat16 else F.pad(x, (0, _cin16(c) - c))
 
 
 def _f32(name: str, t: torch.Tensor, shape) -> torch.Tensor:
@@ -149,29 +172,263 @@ def _f32(name: str, t: torch.Tensor, shape) -> torch.Tensor:
     return t
 
 
-def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                  bias: torch.Tensor, relu: bool) -> torch.Tensor:
-    """[relu](conv3x3_p1(x, w) * scale + bias): x (N, H, W, cin), any cin;
-    w (cout, cin, 3, 3), cout a multiple of 64; scale, bias (cout,).
-    Returns (N, H, W, cout) in x's dtype."""
+def _opt_f32(name: str, t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+    return None if t is None else _f32(name, t, shape)
+
+
+class ConvWeight(NamedTuple):
+    """torch's (cout, cin, 3, 3) float32 weight laid out for the kernels,
+    once a forward call (`conv3x3_weight`), and reused by its dx.
+    bf16: `fwd` is (9, cout, cin8) bf16 (wk[tap][co][ci], cin8 = cin rounded
+    up to 8, zeros beyond cin), which the forward and dx GEMMs both read
+    (`dx` is the same tensor); float32: `fwd` and `dx` are
+    csrc/dense_conv.cuh's blocked layouts of w and of w flipped and
+    io-transposed, (cout/64, 9, cin64, 64) and (cin64/64, 9, cout, 64),
+    `dx` None where no dx call will read it."""
+    fwd: torch.Tensor
+    dx: Optional[torch.Tensor]
+
+
+def conv3x3_weight(w: torch.Tensor, dtype, dx: bool = True) -> ConvWeight:
+    """Lay w (cout, cin, 3, 3) out for the forward and dx kernels in `dtype`
+    (float32 or bfloat16): one launch, which reads w as it lies. dx False:
+    for the forward only (float32 then writes no dx layout)."""
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"conv3x3_weight takes float32 or bfloat16, got {dtype}")
+    cout, cin = w.shape[:2]
+    dense_channels("conv3x3_weight", cout)
+    w32 = _f32("w", w, (cout, cin, 3, 3))
+    if dtype == torch.bfloat16:
+        fwd = wd = torch.empty((9, cout, _cin8(cin)), device=w.device, dtype=dtype)
+    else:
+        c64 = _cin64(cin)
+        fwd = torch.empty((cout // BLOCK, 9, c64, BLOCK), device=w.device, dtype=dtype)
+        wd = torch.empty((c64 // BLOCK, 9, cout, BLOCK), device=w.device,
+                         dtype=dtype) if dx else None
+    rc = lib_fn("conv3x3_weight_launch", [INT, PTR, PTR, PTR, INT, INT, PTR])(
+        DTYPE_CODE[dtype], w32.data_ptr(), fwd.data_ptr(), _ptr(wd), cin, cout, stream(w))
+    launched("conv3x3_weight", rc)
+    return ConvWeight(fwd, wd)
+
+
+class ConvPlan(NamedTuple):
+    """The tiles of one bf16 3x3-conv GEMM launch (`csrc/conv3x3.cuh`): M =
+    the n*h*w output pixels in tiles of `R` rows x `S` pixels of one image,
+    computed as R rows of the (S + 2)-wide halo (R (S + 2) <= `bm` GEMM
+    rows, 256 for 64-column tiles, else 128; the two pad columns of each row
+    are discarded outputs), N = `cols` output channels in tiles of `bn`, K =
+    9 taps x `kc` input channels in `ktiles` tiles of one tap x CV_BK
+    channels (K tile kt: tap kt % 9 of slab kt // 9), cut into `splits` runs
+    of `kper` (whole slabs), the ranks of one thread-block cluster, summed
+    in rank order. The grid is `clusters`
+    clusters of `splits` blocks, persistent: cluster c takes tiles c, c +
+    clusters, ... (tile t: M tile t % mtiles, N tile t // mtiles), as
+    `blocks` lists. The forward (`dx` False) has cols = cout and kc = cin
+    rounded up to 16; dx cols = cin and kc = cout."""
+    dx: bool
+    n: int
+    h: int
+    w: int
+    cols: int
+    kc: int
+    R: int
+    S: int
+    bn: int
+    splits: int
+    kper: int
+    clusters: int
+
+    @property
+    def bm(self) -> int:
+        return CV_BM[self.bn]
+
+    @property
+    def rtiles(self) -> int:
+        return -(-self.h // self.R)
+
+    @property
+    def ctiles(self) -> int:
+        return -(-self.w // self.S)
+
+    @property
+    def mtiles(self) -> int:
+        return self.n * self.rtiles * self.ctiles
+
+    @property
+    def ntiles(self) -> int:
+        return -(-self.cols // self.bn)
+
+    @property
+    def tiles(self) -> int:
+        return self.mtiles * self.ntiles
+
+    @property
+    def ktiles(self) -> int:
+        return 9 * -(-self.kc // CV_BK)
+
+    @property
+    def grid(self) -> int:
+        return self.clusters * self.splits
+
+    def pixels(self, mt: int):
+        """The output pixels (image * h * w + row * w + column) of M tile
+        mt, in tile order; the tile's other rows are discarded."""
+        ct, rest = mt % self.ctiles, mt // self.ctiles
+        rt, img = rest % self.rtiles, rest // self.rtiles
+        return [(img * self.h + r) * self.w + j
+                for r in range(rt * self.R, min(self.h, rt * self.R + self.R))
+                for j in range(ct * self.S, min(self.w, ct * self.S + self.S))]
+
+    def blocks(self):
+        """(rank, cluster, its tiles, first K tile, K tiles) of each block,
+        in grid order: the kernel's own mapping of blockIdx.x."""
+        for b in range(self.grid):
+            rank, cid = b % self.splits, b // self.splits
+            k0 = rank * self.kper
+            yield (rank, cid, range(cid, self.tiles, self.clusters), k0,
+                   min(self.ktiles - k0, self.kper))
+
+    def stores(self, rank: int) -> range:
+        """The 16-byte output chunks of a tile (R * S pixels of bn / 8) that
+        rank `rank` of the cluster sums over the ranks and writes: whole
+        pixels, so that each thread keeps one 8-channel column."""
+        px, cpr = self.R * self.S, self.bn // 8
+        per = -(-px // self.splits)
+        return range(rank * per * cpr, min(px, (rank + 1) * per) * cpr)
+
+
+CV_BM = {64: 256, 128: 128}   # csrc/conv3x3.cuh: GEMM rows of a tile, by its columns
+CV_BK = 64               # channels of a slab
+CV_HW = 32               # the widest halo row, S + 2
+CV_MAX_SPLIT = 3         # the most K splits a cluster sums
+# the plan's cost model, in units of a 128 x 64 K tile's MMA: a K tile's
+# fixed cost (its barriers, its boxes' issue) and a tile's epilogue
+CV_STEP, CV_TILE = 0.5, 3.0
+
+
+def conv_tile(h: int, w: int, bm: int) -> Tuple[int, int]:
+    """The M tile (R rows, S pixels) of an h x w level, R (S + 2) <= bm and
+    S + 2 <= CV_HW: the fewest tiles a level, then the smallest halo
+    ((R + 2)(S + 2) pixels staged a slab), then the widest. For bm = 128:
+    224, 112 and 56 wide 8 x 14 (112 of 128 rows used), 28 wide 4 x 28, 14
+    wide 14 x 7."""
+    best = None
+    for s_ in range(1, min(w, CV_HW - 2) + 1):
+        r_ = min(h, bm // (s_ + 2))
+        key = (-(-h // r_) * -(-w // s_), (r_ + 2) * (s_ + 2), -s_)
+        if best is None or key < best[0]:
+            best = (key, r_, s_)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)   # each call of the trainer's asks again
+def conv_plan(dx: bool, n: int, h: int, w: int, cin: int, cout: int, sms: int) -> ConvPlan:
+    """The tiles of the bf16 3x3 conv's forward (dx False) or input gradient
+    for x (n, h, w, cin) and y (n, h, w, cout) on a card of `sms` SMs. M
+    tiles from `conv_tile`; N tiles of 128 columns where the columns divide
+    by 128, else 64; where the tiles leave SMs idle, K split into whole
+    slabs, up to CV_MAX_SPLIT ways, with at most sms // splits clusters: the
+    grid is one wave of one block an SM. Of those, the plan of least cost:
+    rounds of tiles an SM x (K tiles a split x (CV_STEP + the tile's MMA in
+    128 x 64 units) + the epilogue)."""
+    cols, kc = (cin, cout) if dx else (cout, _cin16(cin))
+    plan = ConvPlan(dx, n, h, w, cols, kc, 1, 1, 64, 1, 0, 0)
+    ktiles, best = plan.ktiles, None
+    for bn in (128, 64):
+        if bn == 128 and cols % 128:
+            continue
+        r_, s_ = conv_tile(h, w, CV_BM[bn])
+        tiles = plan._replace(bn=bn, R=r_, S=s_).tiles
+        for splits in range(1, CV_MAX_SPLIT + 1):
+            kper = 9 * -(-ktiles // 9 // splits)
+            if splits > 1 and (tiles >= sms or (splits - 1) * kper >= ktiles):
+                continue
+            clusters = min(tiles, sms // splits)
+            cost = -(-tiles // clusters) * (kper * (CV_STEP + CV_BM[bn] * bn / 8192)
+                                            + CV_TILE + splits - 1)
+            key = (cost, splits, -bn)
+            if best is None or key < best[0]:
+                best = (key, plan._replace(bn=bn, R=r_, S=s_, splits=splits, kper=kper,
+                                           clusters=clusters))
+    return best[1]
+
+
+def _gemm(x: torch.Tensor, wk: ConvWeight, scale, bias, relu: bool, out: torch.Tensor,
+          cin: int, cout: int, dx: bool) -> None:
+    """One launch of the conv's kernel: the forward (x (N, H, W, cin, or
+    cin16 in bf16) -> out (N, H, W, cout)) or dx (x = g (N, H, W, cout) ->
+    out (N, H, W, cin, or cin64 in float32)); scale and bias float32 or
+    None."""
+    n, h, wd = x.shape[:3]
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(dx, n, h, wd, cin, cout, _sms(x.device.index))
+        rc = lib_fn("conv3x3_gemm_launch", [INT] + [PTR] * 5 + [INT] * 11 + [PTR])(
+            int(dx), x.data_ptr(), wk.fwd.data_ptr(), _ptr(scale), _ptr(bias), out.data_ptr(),
+            n, h, wd, cin, cout, int(relu), plan.R, plan.S, plan.bn, plan.splits,
+            plan.clusters, stream(x))
+    else:
+        cx, co, w_ = (cout, out.shape[-1], wk.dx) if dx else (x.shape[-1], cout, wk.fwd)
+        rc = lib_fn("conv3x3_launch", [PTR] * 5 + [INT] * 6 + [PTR])(
+            x.data_ptr(), w_.data_ptr(), _ptr(scale), _ptr(bias), out.data_ptr(), n, h, wd,
+            cx, co, int(relu), stream(x))
+    launched("conv3x3_dx" if dx else "fused_conv3x3", rc)
+
+
+def _conv_check(name: str, x: torch.Tensor, w: torch.Tensor):
+    """(n, h, w, cin, cout) of a forward call: x (N, H, W, cin or cin16)."""
+    n, h, wd, cx = x.shape
+    cout, cin = w.shape[:2]
+    dense_channels(name, cout)
+    if tuple(w.shape) != (cout, cin, 3, 3) or cx not in (cin, _cin16(cin)):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} disagree")
+    check("x", x, (n, h, wd, cx), x.dtype)
+    return n, h, wd, cin, cout
+
+
+def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
+                  bias: Optional[torch.Tensor], relu: bool,
+                  wk: Optional[ConvWeight] = None) -> torch.Tensor:
+    """[relu](conv3x3_p1(x, w) * scale + bias): x (N, H, W, cin), or cin
+    rounded up to 16 with zeros beyond cin; w (cout, cin, 3, 3), cout a
+    multiple of 64; scale, bias (cout,) or None (1 and 0). wk: w laid out
+    by `conv3x3_weight` in x's dtype (laid out here for the forward only,
+    one launch, if None). Returns (N, H, W, cout) in x's dtype."""
     if x.device.type == "cpu":
-        return fused_conv3x3_ref(x, w, scale, bias, relu)
-    code = dtype_code("fused_conv3x3", x)
-    n, h, wd, cin = x.shape
-    cout = w.shape[0]
-    dense_channels("fused_conv3x3", cout)
-    if tuple(w.shape) != (cout, cin, 3, 3):
-        raise ValueError(f"fused_conv3x3: w must be ({cout}, {cin}, 3, 3), got {tuple(w.shape)}")
-    check("x", x, (n, h, wd, cin), x.dtype)
-    wk = conv_weights(w, x.dtype)
-    sk, bk = _f32("scale", scale, (cout,)), _f32("bias", bias, (cout,))
+        return fused_conv3x3_ref(x[..., :w.shape[1]], w, scale, bias, relu)
+    dtype_code("fused_conv3x3", x)
+    n, h, wd, cin, cout = _conv_check("fused_conv3x3", x, w)
+    x = _gemm_input(x)
+    wk = wk or conv3x3_weight(w, x.dtype, dx=False)
     out = torch.empty((n, h, wd, cout), device=x.device, dtype=x.dtype)
-    rc = lib_fn("conv3x3_launch", [INT] + [PTR] * 5 + [INT] * 6 + [PTR])(
-        code, x.data_ptr(), wk.data_ptr(), sk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-        n, h, wd, cin, cout, int(relu), stream(x))
-    launched("fused_conv3x3", rc)
+    _gemm(x, wk, _opt_f32("scale", scale, (cout,)), _opt_f32("bias", bias, (cout,)), relu,
+          out, cin, cout, False)
     fused_conv3x3.launches += 1
     return out
+
+
+def conv3x3_dx(g: torch.Tensor, w: torch.Tensor, wk: Optional[ConvWeight] = None) -> torch.Tensor:
+    """Input gradient of a 3x3 pad-1 conv, conv3x3_p1(g, w flipped and
+    io-transposed): g (N, H, W, cout), cout a multiple of 64; w (cout, cin,
+    3, 3), rounded to g's dtype -> (N, H, W, cin) in g's dtype. wk: w laid
+    out by `conv3x3_weight` in g's dtype, as the forward leaves it (laid out
+    here, one more launch, if None); then the call is one launch."""
+    if g.device.type == "cpu":
+        return conv3x3_dx_ref(g, w)
+    dtype_code("conv3x3_dx", g)
+    n, h, wd, cout = g.shape
+    cin = w.shape[1]
+    dense_channels("conv3x3_dx", cout)
+    if tuple(w.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"conv3x3_dx: g {tuple(g.shape)} and w {tuple(w.shape)} disagree")
+    check("g", g, (n, h, wd, cout), g.dtype)
+    if wk is None or wk.dx is None:
+        wk = conv3x3_weight(w, g.dtype)
+    # float32 (dense_conv.cuh) writes whole 64-channel blocks
+    width = cin if g.dtype == torch.bfloat16 else _cin64(cin)
+    dx = torch.empty((n, h, wd, width), device=g.device, dtype=g.dtype)
+    _gemm(g, wk, None, None, False, dx, cin, cout, True)
+    conv3x3_dx.launches += 1
+    return dx[..., :cin]
 
 
 class WgradPlan(NamedTuple):
@@ -386,20 +643,25 @@ def deconv_plan(dx: bool, n: int, h: int, w: int, cin: int, cout: int, sms: int)
     return plan._replace(splits=-(-ktiles // kper), kper=kper)
 
 
-def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def conv3x3_dw(x: torch.Tensor, g: torch.Tensor, cin: Optional[int] = None) -> torch.Tensor:
     """Float32 (cout, cin, 3, 3) weight gradient of a 3x3 pad-1 conv of x
-    (N, H, W, cin), any cin, given g (N, H, W, cout) in x's dtype, cout a
-    multiple of 64."""
+    (N, H, W, cx), given g (N, H, W, cout) in x's dtype, cout a multiple of
+    64. cin: the conv's input channels, any count, x's first cin (x's
+    channels if None); the others, such as the zeros the trainer pads a
+    3-channel x with, are not read."""
+    cin = cin or x.shape[-1]
     if x.device.type == "cpu":
-        return conv3x3_dw_ref(x, g)
+        return conv3x3_dw_ref(x[..., :cin], g)
     code = dtype_code("conv3x3_dw", x)
-    n, h, wd, cin = x.shape
+    n, h, wd, cx = x.shape
     cout = g.shape[-1]
     dense_channels("conv3x3_dw", cout)
-    check("x", x, (n, h, wd, cin), x.dtype)
+    if not 0 < cin <= cx:
+        raise ValueError(f"conv3x3_dw: cin {cin} of an x of {cx} channels")
+    check("x", x, (n, h, wd, cx), x.dtype)
     check("g", g, (n, h, wd, cout), x.dtype)
-    cx = -(-cin // 8) * 8   # every staging copy is 16 bytes
-    xk = x if cx == cin else F.pad(x, (0, cx - cin))
+    xk = x if cx % 8 == 0 else F.pad(x, (0, -cx % 8))   # every staging copy is 16 bytes
+    cx = xk.shape[-1]
     plan = wgrad_plan(9, n, h, wd, cin, cout, x.dtype, _sms(x.device.index))
     part, bar = _launch_plan(x, plan)
     dw = torch.empty((cout, cin, 3, 3), device=x.device, dtype=torch.float32)
@@ -416,10 +678,11 @@ def fused_convstack2(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     """relu(conv3x3(relu(conv3x3(x, w1) * s1 + b1), w2) * s2 + b2), the
     intermediate rounded to x's dtype: a ConvStack pair with folded
     BatchNorm. x (N, H, W, cin); w1 (cmid, cin, 3, 3); w2 (cout, cmid, 3, 3),
-    cmid and cout multiples of 64."""
+    cmid and cout multiples of 64. Four launches: each weight laid out, then
+    the two convs, the intermediate through device memory."""
     if x.device.type == "cpu":
         return fused_convstack2_ref(x, w1, s1, b1, w2, s2, b2)
-    code = dtype_code("fused_convstack2", x)
+    dtype_code("fused_convstack2", x)
     n, h, wd, cin = x.shape
     cmid, cout = w1.shape[0], w2.shape[0]
     dense_channels("fused_convstack2", cmid, cout)
@@ -427,16 +690,14 @@ def fused_convstack2(x, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
         raise ValueError(f"fused_convstack2: weights {tuple(w1.shape)}, {tuple(w2.shape)} "
                          f"do not chain from {cin} channels")
     check("x", x, (n, h, wd, cin), x.dtype)
-    wk1, wk2 = conv_weights(w1, x.dtype), conv_weights(w2, x.dtype)
+    x = _gemm_input(x)
     vs = tuple(_f32(name, t, (c,)) for name, t, c in
                (("s1", s1, cmid), ("b1", b1, cmid), ("s2", s2, cout), ("b2", b2, cout)))
     mid = torch.empty((n, h, wd, cmid), device=x.device, dtype=x.dtype)
     out = torch.empty((n, h, wd, cout), device=x.device, dtype=x.dtype)
-    rc = lib_fn("convstack2_launch", [INT] + [PTR] * 9 + [INT] * 6 + [PTR])(
-        code, x.data_ptr(), wk1.data_ptr(), vs[0].data_ptr(), vs[1].data_ptr(), wk2.data_ptr(),
-        vs[2].data_ptr(), vs[3].data_ptr(), mid.data_ptr(), out.data_ptr(), n, h, wd, cin, cmid,
-        cout, stream(x))
-    launched("fused_convstack2", rc)
+    _gemm(x, conv3x3_weight(w1, x.dtype, dx=False), vs[0], vs[1], True, mid, cin, cmid, False)
+    _gemm(mid, conv3x3_weight(w2, x.dtype, dx=False), vs[2], vs[3], True, out, cmid, cout,
+          False)
     fused_convstack2.launches += 1
     return out
 
@@ -563,7 +824,7 @@ def max_pool2x2_bwd(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     return gx
 
 
-WRAPPERS = (fused_conv3x3, conv3x3_dw, fused_convstack2, deconv2x2, deconv2x2_dx,
+WRAPPERS = (fused_conv3x3, conv3x3_dx, conv3x3_dw, fused_convstack2, deconv2x2, deconv2x2_dx,
             deconv2x2_dwdb, max_pool2x2, max_pool2x2_bwd)
 for _fn in WRAPPERS:
     _fn.launches = 0
@@ -573,13 +834,21 @@ for _fn in WRAPPERS:
 
 
 class Conv3x3(torch.autograd.Function):
-    """`fused_conv3x3` with the JAX VJP's backward (`_fused_bwd`): dx by the
-    forward kernel with flipped, io-transposed weights (skipped when x needs
-    no gradient), dw by `conv3x3_dw`, dscale and dbias as plain sums."""
+    """`fused_conv3x3` with the JAX VJP's backward (`_fused_bwd`): dx by
+    `conv3x3_dx` (skipped when x needs no gradient), dw by `conv3x3_dw`,
+    dscale and dbias as plain sums. On a card the forward lays the weight
+    out once (`conv3x3_weight`; float32 writes dx's layout only where
+    `need_dx` says a backward will take dx), and pads a ragged x to 16
+    channels once in bf16, for the forward and dw; scale and bias may be
+    None (1 and 0)."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, bias, relu: bool):
-        y = fused_conv3x3(x, w, scale, bias, relu)
+    def forward(ctx, x, w, scale, bias, relu: bool, need_dx: bool):
+        ctx.wk = None
+        if x.device.type == "cuda":
+            x = _gemm_input(x)
+            ctx.wk = conv3x3_weight(w, x.dtype, need_dx)
+        y = fused_conv3x3(x, w, scale, bias, relu, ctx.wk)
         ctx.relu = relu
         ctx.save_for_backward(x, w, scale, bias, y)
         return y
@@ -587,25 +856,19 @@ class Conv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, w, scale, bias, y = ctx.saved_tensors
-        need_x, need_w, need_s, need_b, _ = ctx.needs_input_grad
+        need_x, need_w, need_s, need_b = ctx.needs_input_grad[:4]
         gy = wide(gy)
         if ctx.relu:
             gy = gy * (y > 0)
         sums = (0, 1, 2)
-        dscale = (gy * ((wide(y) - bias) / scale)).sum(sums) if need_s else None
+        dscale = (gy * ((wide(y) - (0 if bias is None else bias)) / scale)).sum(sums) \
+            if need_s else None
         dbias = gy.sum(sums) if need_b else None
-        gc = (gy * wide(scale)).to(x.dtype).contiguous()
-        dx = dw = None
-        if need_x:
-            cin = x.shape[-1]
-            w_rot = w.detach().flip(2, 3).transpose(0, 1)
-            if cin % BLOCK:   # the kernel writes whole 64-channel blocks
-                w_rot = F.pad(w_rot, (0, 0, 0, 0, 0, 0, 0, _cin64(cin) - cin))
-            ones = torch.ones(w_rot.shape[0], device=x.device)
-            dx = fused_conv3x3(gc, w_rot, ones, torch.zeros_like(ones), False)[..., :cin]
-        if need_w:
-            dw = conv3x3_dw(x, gc).to(w.dtype)
-        return dx, dw, dscale, dbias, None
+        gc = (gy if scale is None else gy * wide(scale)).to(x.dtype).contiguous()
+        dx = conv3x3_dx(gc, w, ctx.wk) if need_x else None
+        # a bf16 x may carry zero channels beyond w's (padded to 16): dw leaves them
+        dw = conv3x3_dw(x, gc, w.shape[1]).to(w.dtype) if need_w else None
+        return dx, dw, dscale, dbias, None, None
 
 
 class Deconv(torch.autograd.Function):
@@ -644,8 +907,10 @@ class Pool2x2(torch.autograd.Function):
 
 
 def conv3x3(x, w, scale, bias, relu: bool) -> torch.Tensor:
-    """Differentiable `fused_conv3x3` (x contiguous NHWC)."""
-    return Conv3x3.apply(x.contiguous(), w, scale, bias, relu)
+    """Differentiable `fused_conv3x3` (x contiguous NHWC; scale, bias or
+    None)."""
+    need_dx = torch.is_grad_enabled() and x.requires_grad
+    return Conv3x3.apply(x.contiguous(), w, scale, bias, relu, need_dx)
 
 
 def deconv(x, w, b) -> torch.Tensor:
