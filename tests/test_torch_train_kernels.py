@@ -22,6 +22,8 @@ item is computed by exactly one block, the partial scratch is what the
 blocks write, and one pass writes at most 0.5 GB of partials. So is the
 transposed conv's tiling (`deconv_plan`), at the trainer's 4 levels and the
 kernel tests' edges: every output element is written by one block, once.
+A decoder level's three conv launches (`level_plan`) are held the same way
+at the model's levels at the serving batches and at ragged sizes.
 
 On a GPU host without JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_train_kernels.py`. There each kernel, forward and every
@@ -236,6 +238,51 @@ def test_conv_plan_covers_every_output_once(n, h, w, cin, cout, dx):
     assert chunks == list(range(plan.R * plan.S * plan.bn // 8))
     assert plan.grid <= SMS and plan.splits <= K.CV_MAX_SPLIT
     assert plan.kper % 9 == 0   # whole slabs: a split stages whole halos
+
+
+# a decoder level's (n, h, w, C, cq) of output size h x w: the model's four
+# levels at the serving batches 16 and 64 (224^2 images), the ragged levels
+# chip_smoke.py runs (up1 36x52, a C = 256 level at 20x28) and the cuda
+# tests' sizes
+LEVELS = tuple((n, h, h, c, cq) for n in (16, 64) for h, c, cq in
+               ((224, 64, 64), (112, 128, 64), (56, 256, 128), (28, 512, 256))) + (
+    (2, 36, 52, 64, 64), (2, 20, 28, 256, 128), (2, 16, 32, 64, 64), (2, 20, 36, 64, 64),
+    (2, 16, 32, 128, 64), (2, 16, 28, 512, 256))
+
+
+@pytest.mark.parametrize("n,h,w,c,cq", LEVELS)
+def test_level_plan_covers_every_output_once(n, h, w, c, cq):
+    """Each of a decoder level's three conv launches (d2, the pair conv,
+    block1) is conv_plan's for its channels: its tiles hold every output
+    pixel of every image once and every output channel, its K splits take
+    every K tile once, and its grid is one wave. The pair conv reads up's
+    C/64 slabs, then gated's, in order; with up1's head (cq = 64) block1's
+    tiles are 64 columns, one pixel's channels a tile."""
+    plan = K.level_plan(n, h, w, c, cq, SMS)
+    for p, cin, cout in ((plan.d2, c, c), (plan.pair, 2 * c, cq), (plan.blk1, cq, cq)):
+        assert p == K.conv_plan(False, n, h, w, cin, cout, SMS)
+        assert (p.cols, p.kc) == (cout, cin) and p.R * (p.S + 2) <= p.bm
+        per_image = p.rtiles * p.ctiles
+        assert p.mtiles == n * per_image
+        pixels = np.concatenate([p.pixels(mt) for mt in range(per_image)])
+        np.testing.assert_array_equal(np.bincount(pixels, minlength=h * w), 1)
+        last = (n - 1) * per_image   # the last image's tiles are the first's, shifted
+        assert p.pixels(last) == [px + (n - 1) * h * w for px in p.pixels(0)]
+        assert p.ntiles * p.bn == cout
+        taken = Counter()
+        for rank, cid, tiles, k0, count in p.blocks():
+            taken.update(tiles)
+            assert k0 == rank * p.kper and count >= 1
+        assert sorted(taken) == list(range(p.tiles)) and set(taken.values()) == {p.splits}
+        ks = [k for rank in range(p.splits)
+              for k in range(rank * p.kper, min(p.ktiles, (rank + 1) * p.kper))]
+        assert ks == list(range(p.ktiles)) and p.kper % 9 == 0 and p.grid <= SMS
+    assert plan.pair_slabs == tuple([("up", 64 * s) for s in range(c // 64)]
+                                    + [("gated", 64 * s) for s in range(c // 64)])
+    assert len(plan.pair_slabs) * 9 == plan.pair.ktiles
+    if cq == 64:   # the head: one 64-column tile a pixel, one K slab
+        assert plan.blk1.bn == 64 and plan.blk1.splits == 1
+    assert len(plan.ints()) == 15
 
 
 # ------------------------------------------------------------------ the weight-gradient plan

@@ -133,6 +133,20 @@ def test_cpu_wrappers_take_the_plain_version():
     assert (K.up1_gate.launches, K.up1_tail.launches) == before
 
 
+def test_cpu_tail_takes_the_plain_version_in_bf16():
+    """bf16 tail weights laid out for the CPU are the plain version's, as
+    given; the wrapper returns the plain version's logits, counts no
+    launch."""
+    args = tail_args(make_inputs(7, 1, 8, 12, 64, 2), dtype=torch.bfloat16)
+    wts = K.tail_weights(*args[3:], dtype=torch.bfloat16)
+    assert wts.kernel == () and len(wts.plain) == 10
+    n0 = K.up1_tail.launches
+    got = K.up1_tail(*args[:3], wts)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 8, 12, 2)
+    assert K.up1_tail.launches == n0
+    torch.testing.assert_close(got, K.up1_tail_ref(*args), rtol=0, atol=0)
+
+
 def test_bf16_plain_version_rounds_between_stages():
     """In bf16 the plain tail keeps float32 sums but rounds each stage to
     bf16: it stays close to the float32 result and returns bf16."""
@@ -180,8 +194,10 @@ def test_gate_kernel_matches_plain(cuda, dtype, h, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,ncls", [(16, 32, 1), (20, 36, 3)])
+@pytest.mark.parametrize("h,w,ncls", [(16, 32, 1), (20, 36, 3), (36, 52, 1), (12, 20, 11)])
 def test_tail_kernel_matches_plain(cuda, dtype, h, w, ncls):
+    """Ragged levels (the bf16 head's shuffles at a tile's and the image's
+    edge) and up to 11 classes (the head's classes over its 8 lanes)."""
     d = make_inputs(6, 2, h, w, 64, ncls)
     args = tail_args(d, cuda, dtype)
     n0 = K.up1_tail.launches
@@ -191,3 +207,12 @@ def test_tail_kernel_matches_plain(cuda, dtype, h, w, ncls):
     ref = K.up1_tail_ref(*args)
     scale = ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= CUDA_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_bf16_tail_repeats_bit_for_bit(cuda):
+    """Two calls on the same inputs give the same bits (the pair conv splits
+    K at this size)."""
+    args = tail_args(make_inputs(8, 2, 36, 52, 64, 3), cuda, torch.bfloat16)
+    call = tail_call(args)
+    assert torch.equal(K.up1_tail(*call), K.up1_tail(*call))

@@ -5,7 +5,8 @@ versions.
 The JAX side runs `fused_cbn_stats_dense` / `fused_up_dense` in Pallas
 interpret mode, as tests/test_pallas.py does. Inputs come from numpy seeds,
 in JAX layouts, and are carried to the port's layouts here. Tolerance 1e-4
-in float32: only summation order differs.
+in float32: only summation order differs. The bf16 level's fold-time
+weight layout is held to F.conv2d on the CPU.
 
 The CUDA tests need a card and nvcc; without them they skip. On a GPU host
 without JAX they run with `python -m pytest --noconftest -m cuda
@@ -128,6 +129,50 @@ def test_cpu_wrappers_take_the_plain_version():
     assert (K.up_gate_dense.launches, K.up_level.launches) == before
 
 
+def test_cpu_wrappers_take_the_plain_version_in_bf16():
+    """bf16 weights laid out for the CPU are the plain version's, as given
+    (the kernel layouts are made only for weights on a card); the wrapper
+    returns the plain version's result and counts no launch."""
+    d = make_inputs(7, 1, 8, 12, 64, 64)
+    args = level_args(d, dtype=torch.bfloat16)
+    wts = K.up_level_weights(*args[3:], dtype=torch.bfloat16)
+    assert wts.kernel == () and all(a is b for a, b in zip(wts.plain, args[3:]))
+    n0 = K.up_level.launches
+    got = K.up_level(*args[:3], wts)
+    assert got.dtype == torch.bfloat16 and K.up_level.launches == n0
+    torch.testing.assert_close(got, K.up_level_ref(*args), rtol=0, atol=0)
+
+
+def conv_by_taps(x, wk):
+    """A 3x3 pad-1 conv of x (N, H, W, Ci) over weights laid out (9, Co, Ci)
+    as the bf16 GEMM reads them: tap (ky, kx) multiplies the input ky - 1
+    rows and kx - 1 columns on."""
+    n, h, w, _ = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    return sum(xp[:, t // 3:t // 3 + h, t % 3:t % 3 + w, :] @ wk[t].float().T for t in range(9))
+
+
+def test_bf16_level_layout_rebuilds_each_conv():
+    """The fold-time bf16 layout of d2, the pair conv and block1 ((9, cout,
+    cin) bf16): a conv over it equals F.conv2d over the OIHW weight rounded
+    to bf16; w_up stays torch's float32 as it lies, the biases float32."""
+    from unet_goolenet_tpu_torch.ops.conv import conv2d
+
+    d = make_inputs(8, 1, 6, 10, 64, 64)
+    args = level_args(d)
+    lay = K.level_layout(*args[3:], dtype=torch.bfloat16)
+    assert lay[0].dtype == torch.float32 and torch.equal(lay[0], args[3])
+    for (shape, dt), wl in zip(K.level_shapes(64, 64, torch.bfloat16), lay[::2]):
+        assert tuple(wl.shape) == shape and wl.dtype == dt and wl.is_contiguous()
+    assert all(b.dtype == torch.float32 and torch.equal(b, a)
+               for a, b in zip(args[4::2], lay[1::2]))
+    rng = np.random.default_rng(9)
+    for w, wk in zip(args[5::2], lay[2::2]):
+        x = t(rng.standard_normal((1, 6, 10, w.shape[1])).astype(np.float32))
+        ref = conv2d(x, w.to(torch.bfloat16).float(), padding=1)
+        torch.testing.assert_close(conv_by_taps(x, wk), ref, rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_refuse_channels_off_the_block():
     """The kernels take channel counts in blocks of 64; laying out weights
     for anything else raises instead of launching a wrong kernel."""
@@ -173,8 +218,11 @@ def test_gate_kernel_matches_plain(cuda, dtype, h, w, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,c,cq", [(16, 32, 128, 64), (20, 28, 256, 128)])
+@pytest.mark.parametrize("h,w,c,cq", [(16, 32, 128, 64), (20, 28, 256, 128), (16, 28, 512, 256),
+                                      (16, 32, 64, 64)])
 def test_level_kernel_matches_plain(cuda, dtype, h, w, c, cq):
+    """The model's (C, cq) on small and ragged levels; at batch 2 the pair
+    conv and block1 split K (conv.level_plan)."""
     d = make_inputs(6, 2, h, w, c, cq)
     args = level_args(d, cuda, dtype)
     n0 = K.up_level.launches
@@ -182,3 +230,43 @@ def test_level_kernel_matches_plain(cuda, dtype, h, w, c, cq):
     torch.cuda.synchronize()
     assert K.up_level.launches == n0 + 1
     assert worst(got, K.up_level_ref(*args)) <= CUDA_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,cq", [(20, 28, 256, 128), (16, 28, 512, 256)])
+def test_bf16_level_repeats_bit_for_bit(cuda, h, w, c, cq):
+    """Two calls on the same inputs give the same bits, K splits included."""
+    args = level_args(make_inputs(10, 2, h, w, c, cq), cuda, torch.bfloat16)
+    call = level_call(args)
+    assert torch.equal(K.up_level(*call), K.up_level(*call))
+
+
+@pytest.mark.cuda
+def test_level_deconv_keeps_the_float32_bias(cuda):
+    """The level's transposed conv adds b_up in float32 (as up_level_ref and
+    the TPU level kernel do), the trainer's deconv2x2 rounds it to bf16 (as
+    its plain version does). With one input channel at 1, its weights 256
+    and b_up = 1 + 2^-9, up = bf16(257.002) = 258 with the float32 bias and
+    bf16(256 + 1) = 256 (a tie, to even) with the rounded one; d2 = 0, and
+    the pair conv and block1 pass up's first cq channels through (centre tap
+    1), so the level returns up there."""
+    from unet_goolenet_tpu_torch.ops.kernels import conv as KC
+
+    n, h, w, c, cq = 1, 8, 12, 128, 64
+    x = torch.zeros(n, h // 2, w // 2, c)
+    x[..., 0] = 1.0
+    w_up = torch.zeros(c, c, 2, 2)
+    w_up[0] = 256.0
+    b_up = torch.full((c,), 1.0 + 2.0 ** -9)
+    w_pair, w_blk1 = torch.zeros(cq, 2 * c, 3, 3), torch.zeros(cq, cq, 3, 3)
+    w_pair[range(cq), range(cq), 1, 1] = 1.0
+    w_blk1[range(cq), range(cq), 1, 1] = 1.0
+    zc, zq = torch.zeros(c), torch.zeros(cq)
+    e1 = torch.zeros(n, h, w, c).to(torch.bfloat16)
+    args = [a.to(cuda) for a in (x.to(torch.bfloat16), e1, torch.ones(n, c), w_up, b_up,
+                                 torch.zeros(c, c, 3, 3), zc, w_pair, zq, w_blk1, zq)]
+    got = K.up_level(*level_call(args))
+    assert torch.equal(got, K.up_level_ref(*args)) and (got.float() == 258.0).all()
+    up = KC.deconv2x2(args[0], args[3], args[4])
+    assert torch.equal(up, KC.deconv2x2_ref(args[0], args[3], args[4]))
+    assert (up.float() == 256.0).all()

@@ -80,21 +80,14 @@ extern "C" int conv3x3_gemm_launch(int dx, const void* src, const void* wk, cons
   using namespace conv3;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cin8 = (cin + 7) / 8 * 8;
-  if (N < 1 || H < 1 || W < 1 || cin < 1 || cout % common::C || cout < 1 || R < 1 || S < 1 ||
-      S + 2 > MAX_HW || (bn != 64 && bn != 128) || splits < 1 || splits > MAX_SPLIT ||
-      clusters < 1)
+  if (N < 1 || H < 1 || W < 1 || cin < 1 || cout % common::C || cout < 1)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.scale = scale; a.bias = bias; a.out = out; a.H = H; a.W = W; a.relu = relu;
   a.ncols = dx ? cin : cout;
   a.C = dx ? cout : (cin + 15) / 16 * 16;
-  a.R = R; a.S = S; a.rtiles = (H + R - 1) / R; a.ctiles = (W + S - 1) / S;
-  a.mtiles = N * a.rtiles * a.ctiles;
-  a.tiles = a.mtiles * ((a.ncols + bn - 1) / bn);
   a.slabs = (a.C + BK - 1) / BK;
-  a.splits = splits; a.sper = (a.slabs + splits - 1) / splits;
-  a.clusters = std::min(clusters, a.tiles);
-  if ((splits - 1) * a.sper >= a.slabs) return (int)cudaErrorInvalidValue;
+  if (!plan_tiles(a, N, R, S, bn, splits, clusters)) return (int)cudaErrorInvalidValue;
   // BN = 64 tiles are 256 rows (two m64 blocks a warpgroup), BN = 128 tiles 128
   if (dx) {
     if (bn == 128) return launch<128, true, 1, 4>(a, src, N, wk, cin8, cout, s);

@@ -63,7 +63,21 @@
 //     in registers, applies them and relu to a pixel at a time and stores 16
 //     bytes of NHWC (a ragged channel count, dx of the 3-channel input,
 //     stores element by element).
-// Shared memory: 214 KB a block (BN = 128) or 202 KB (BN = 64, MB = 2).
+//   * Epilogue modes (EPI) for the decoder level of up_level.cu, beside the
+//     trainer's AFFINE (the default, which the trainer's instantiations
+//     take): GATE, d2 = round(relu(acc + b)), out = e1 + round(g1p * d2),
+//     the thread's 8 values of e1 one 16-byte load a pixel and of g1p (1 +
+//     gate, per image) in registers a tile; PAIR, AFFINE over two sources:
+//     K slabs below c0slabs come from amap, the rest from amap2 at channel
+//     (slab - c0slabs) 64, so the pair conv reads concat[up, gated] with no
+//     concatenated copy; HEAD (BN = ncols = 64): y = round(relu(acc + b)),
+//     logits = y @ wout + bout, a pixel's 64 channels being the 8 threads of
+//     one 8-lane group, reduced by shuffles inside the group; the loop runs
+//     warp-uniformly and masks the store, so the shuffles never lose a
+//     lane at the image edge; wout (64 x ncls bf16) is read through L1;
+//     64 input channels are one K slab, so the head never splits K.
+// Shared memory: 214 KB a block (BN = 128) or 202 KB (BN = 64, MB = 2), in
+// every epilogue mode.
 #pragma once
 
 #include <algorithm>
@@ -92,6 +106,8 @@ constexpr int MAX_SPLIT = 3;  // the most K splits a cluster sums (ops/kernels/c
 constexpr int MAX_HW = 32;    // the widest halo row, S + 2
 constexpr int ASTAGES = 2;
 constexpr int BSTAGES = 6;
+// epilogue modes (EPI); AFFINE is the trainer's
+enum { AFFINE = 0, GATE = 1, PAIR = 2, HEAD = 3 };
 
 // BN columns; GEMM rows BM = 128 MB, each warpgroup MB blocks of 64 (BN =
 // 64 takes MB = 2, so that a weight tile serves 256 rows)
@@ -120,12 +136,33 @@ struct Args {
   CUtensorMap bmap;      // wk (cin8, cout, 9, 1) bf16: boxes 64 x BN (forward), 64 x 64 (dx)
   const float* scale;    // (ncols,) or null
   const float* bias;     // (ncols,) or null
-  void* out;             // (N, H, W, ncols) bf16
+  void* out;             // (N, H, W, ncols) bf16; HEAD: (N, H, W, ncls)
   int H, W, ncols, relu;
-  int C;                 // A's channels (a multiple of 16)
+  int C;                 // A's channels (a multiple of 16; PAIR: each source's)
   int R, S, rtiles, ctiles, mtiles, tiles;
   int slabs, sper, splits, clusters;   // K: slabs of 64 channels, sper a split
+  // the decoder level's epilogues (up_level.cu)
+  CUtensorMap amap2;     // PAIR: the second source, as amap, K slabs c0slabs on
+  int c0slabs;
+  const void* e1;        // GATE: (N, H, W, ncols) bf16
+  const void* g1p;       // GATE: (N, ncols) bf16, 1 + gate
+  const void* wout;      // HEAD: (ncols, ncls) bf16
+  const float* bout;     // HEAD: (ncls,)
+  int ncls;
 };
+
+// 8 bf16 at a 16-byte aligned p, as float
+__device__ __forceinline__ void unpack16(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  __nv_bfloat162 h[4];
+  memcpy(h, &u, 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
 
 // Warpgroup g owns GEMM rows 64 (MB g + m) .. + 63 of the tile (m < MB), all
 // BN columns, as wgmma fragments (warp w of the group: rows 16w + lane/4 +
@@ -205,8 +242,10 @@ __device__ __forceinline__ void consumers_sync() {
 // each K tile's weights into the B ring, once their stage is empty. Warps
 // 0-7 (two warpgroups) drain them with one wgmma group in flight, release
 // each stage when its last group is done, and write the tiles.
-template <int BN, bool DX, int MB, int KS>
+template <int BN, bool DX, int MB, int KS, int EPI = AFFINE>
 __global__ void __launch_bounds__(THREADS, 1) conv3x3_gemm(const __grid_constant__ Args a) {
+  static_assert(EPI == AFFINE || !DX, "dx takes the affine epilogue");
+  static_assert(EPI != HEAD || BN == 64, "the head takes one 64-column tile a pixel");
   using G = Geo<BN, MB>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int rank = blockIdx.x % a.splits, cid = blockIdx.x / a.splits;
@@ -258,7 +297,13 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_gemm(const __grid_constant
         if (lane == 0) {   // the slab's halo: (R + 2) x (S + 2) pixels x 64 channels, zeros
           // past the image and past A's channels
           mbar_expect(full_a + sa, (uint32_t)((a.R + 2) * hw * 128));
-          tma4(astage(sa), &a.amap, slab * BK, ct * a.S - 1, rt * a.R - 1, img, full_a + sa);
+          if constexpr (EPI == PAIR) {   // slabs from c0slabs on: the second source
+            const bool two = slab >= a.c0slabs;
+            tma4(astage(sa), two ? &a.amap2 : &a.amap, (two ? slab - a.c0slabs : slab) * BK,
+                 ct * a.S - 1, rt * a.R - 1, img, full_a + sa);
+          } else {
+            tma4(astage(sa), &a.amap, slab * BK, ct * a.S - 1, rt * a.R - 1, img, full_a + sa);
+          }
         }
         __syncwarp();
 #pragma unroll 1
@@ -333,37 +378,74 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_gemm(const __grid_constant
       sc[e] = a.scale && e < nv ? a.scale[col + e] : 1.f;
       bi[e] = a.bias && e < nv ? a.bias[col + e] : 0.f;
     }
-    for (int po = rank * rows + threadIdx.x / G::CPR; nv > 0 && po < p1;
-         po += CONSUMERS / G::CPR) {
-      const int ry = po / a.S, sx = po % a.S, r = rt * a.R + ry, x = ct * a.S + sx;
-      if (r >= a.H || x >= a.W) continue;
-      const int off = (ry * hw + sx) * G::TP + q * 8;
-      float v[8];
+    if constexpr (EPI == HEAD) {
+      // cq = 64 is one K slab, so one rank. A pixel's 64 channels are 8
+      // consecutive lanes (CPR = 8); the loop is uniform over the warp, so
+      // that every lane reaches the shuffles: a pixel past the tile or the
+      // image reads row 0 and stores nothing.
+      const bf16* wo = static_cast<const bf16*>(a.wout) + (size_t)col * a.ncls;
+      for (int p0 = 0; p0 < p1; p0 += CONSUMERS / G::CPR) {
+        const int po = p0 + threadIdx.x / G::CPR;
+        const int ry = po / a.S, sx = po % a.S, r = rt * a.R + ry, x = ct * a.S + sx;
+        const bool in = po < p1 && r < a.H && x < a.W;
+        const float* tp = tl + (in ? (ry * hw + sx) * G::TP : 0) + q * 8;
+        float v[8];
 #pragma unroll
-      for (int e = 0; e < 8; e += 4) {
-        float4 w[MAX_SPLIT];   // every rank's values in flight at once, then summed in rank order
-        if (a.splits == 1) w[0] = *reinterpret_cast<const float4*>(tl + off + e);
+        for (int e = 0; e < 8; ++e) v[e] = rnd<bf16>(fmaxf(tp[e] * sc[e] + bi[e], 0.f));
+        bf16* dst = static_cast<bf16*>(a.out) + (((size_t)img * a.H + r) * a.W + x) * a.ncls;
+        for (int k = 0; k < a.ncls; ++k) {
+          float s = 0.f;
 #pragma unroll
-        for (int z = 0; z < MAX_SPLIT; ++z)
-          if (z < a.splits && a.splits > 1)
-            w[z] = *reinterpret_cast<const float4*>(
-                cg::this_cluster().map_shared_rank(tl + off + e, z));
-        float4 s4 = w[0];
-#pragma unroll
-        for (int z = 1; z < MAX_SPLIT; ++z)
-          if (z < a.splits) { s4.x += w[z].x; s4.y += w[z].y; s4.z += w[z].z; s4.w += w[z].w; }
-        v[e] = s4.x; v[e + 1] = s4.y; v[e + 2] = s4.z; v[e + 3] = s4.w;
+          for (int e = 0; e < 8; ++e) s = fmaf(v[e], to_f(wo[e * a.ncls + k]), s);
+          s += __shfl_xor_sync(0xffffffffu, s, 4);   // inside the pixel's 8-lane group
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          if (in && k % 8 == q) dst[k] = from_f<bf16>(s + a.bout[k]);
+        }
       }
+    } else {
+      float gp[8];
+      if constexpr (EPI == GATE)   // the tile's image's 1 + gate (ncols a multiple of 64)
+        unpack16(static_cast<const bf16*>(a.g1p) + (size_t)img * a.ncols + col, gp);
+      for (int po = rank * rows + threadIdx.x / G::CPR; nv > 0 && po < p1;
+           po += CONSUMERS / G::CPR) {
+        const int ry = po / a.S, sx = po % a.S, r = rt * a.R + ry, x = ct * a.S + sx;
+        if (r >= a.H || x >= a.W) continue;
+        const int off = (ry * hw + sx) * G::TP + q * 8;
+        float v[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        v[e] = v[e] * sc[e] + bi[e];
-        if (a.relu) v[e] = fmaxf(v[e], 0.f);
-      }
-      bf16* dst = static_cast<bf16*>(a.out) + (((size_t)img * a.H + r) * a.W + x) * a.ncols + col;
-      if (nv == 8 && a.ncols % 8 == 0) {   // 16-byte aligned
-        *reinterpret_cast<uint4*>(dst) = pack16<bf16>(v);
-      } else {
-        for (int e = 0; e < nv; ++e) dst[e] = from_f<bf16>(v[e]);
+        for (int e = 0; e < 8; e += 4) {
+          float4 w[MAX_SPLIT];   // every rank's values in flight at once, then summed in rank order
+          if (a.splits == 1) w[0] = *reinterpret_cast<const float4*>(tl + off + e);
+#pragma unroll
+          for (int z = 0; z < MAX_SPLIT; ++z)
+            if (z < a.splits && a.splits > 1)
+              w[z] = *reinterpret_cast<const float4*>(
+                  cg::this_cluster().map_shared_rank(tl + off + e, z));
+          float4 s4 = w[0];
+#pragma unroll
+          for (int z = 1; z < MAX_SPLIT; ++z)
+            if (z < a.splits) { s4.x += w[z].x; s4.y += w[z].y; s4.z += w[z].z; s4.w += w[z].w; }
+          v[e] = s4.x; v[e + 1] = s4.y; v[e + 2] = s4.z; v[e + 3] = s4.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          v[e] = v[e] * sc[e] + bi[e];
+          if (a.relu) v[e] = fmaxf(v[e], 0.f);
+        }
+        const size_t o = (((size_t)img * a.H + r) * a.W + x) * a.ncols + col;
+        if constexpr (EPI == GATE) {   // v is relu(d2 + b): gated = e1 + round(g1p round(v))
+          float e1v[8];
+          unpack16(static_cast<const bf16*>(a.e1) + o, e1v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = e1v[e] + rnd<bf16>(gp[e] * rnd<bf16>(v[e]));
+        }
+        bf16* dst = static_cast<bf16*>(a.out) + o;
+        if (nv == 8 && a.ncols % 8 == 0) {   // 16-byte aligned
+          *reinterpret_cast<uint4*>(dst) = pack16<bf16>(v);
+        } else {
+          for (int e = 0; e < nv; ++e) dst[e] = from_f<bf16>(v[e]);
+        }
       }
     }
     // peers read this tile, and the next tile's to_tile overwrites it, after here
@@ -407,7 +489,7 @@ __global__ void weight_f32_kernel(const float* __restrict__ w, float* __restrict
 
 // The persistent grid may hold no more clusters than the card runs at once
 // (a GPC fits a whole number of them).
-template <int BN, bool DX, int MB, int KS>
+template <int BN, bool DX, int MB, int KS, int EPI>
 int active_clusters(int splits, size_t smem, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits);
@@ -421,17 +503,33 @@ int active_clusters(int splits, size_t smem, cudaStream_t s) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, conv3x3_gemm<BN, DX, MB, KS>, &cfg) != cudaSuccess)
+  if (cudaOccupancyMaxActiveClusters(&n, conv3x3_gemm<BN, DX, MB, KS, EPI>, &cfg) != cudaSuccess)
     return 0;
   return n;
 }
 
+// The tiles of a launch over a.ncols columns and a.slabs K slabs of an N x
+// a.H x a.W output, from ops/kernels/conv.py:conv_plan (R, S, bn, splits,
+// clusters: the persistent grid's, lowered to what the card runs at once
+// for a split); false if the plan does not fit the kernel.
+inline bool plan_tiles(Args& a, int N, int R, int S, int bn, int splits, int clusters) {
+  if (R < 1 || S < 1 || S + 2 > MAX_HW || (bn != 64 && bn != 128) || splits < 1 ||
+      splits > MAX_SPLIT || clusters < 1)
+    return false;
+  a.R = R; a.S = S; a.rtiles = (a.H + R - 1) / R; a.ctiles = (a.W + S - 1) / S;
+  a.mtiles = N * a.rtiles * a.ctiles;
+  a.tiles = a.mtiles * ((a.ncols + bn - 1) / bn);
+  a.splits = splits; a.sper = (a.slabs + splits - 1) / splits;
+  a.clusters = std::min(clusters, a.tiles);
+  return (splits - 1) * a.sper < a.slabs;
+}
+
 // One launch. src: A's activations (N, H, W, C) bf16, C a multiple of 16 (the
-// forward's x, dx's gc); wk (9, cout, cin8). The tile: BN columns, 128 MB
-// rows, KS k steps a K tile.
-template <int BN, bool DX, int MB, int KS>
+// forward's x, dx's gc); src2 (PAIR): the second source, as src; wk (9,
+// cout, cin8). The tile: BN columns, 128 MB rows, KS k steps a K tile.
+template <int BN, bool DX, int MB, int KS, int EPI = AFFINE>
 cudaError_t launch(Args a, const void* src, int N, const void* wk, int cin8, int cout,
-                   cudaStream_t s) {
+                   cudaStream_t s, const void* src2 = nullptr) {
   using G = Geo<BN, MB>;
   if (a.R * (a.S + 2) > G::BM) return cudaErrorInvalidValue;
   const int C = a.C;
@@ -441,13 +539,16 @@ cudaError_t launch(Args a, const void* src, int N, const void* wk, int cin8, int
   if (!wgrad::tensor_map4(&a.amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src, dims, strides, box,
                           CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
+  if (EPI == PAIR && !wgrad::tensor_map4(&a.amap2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src2, dims,
+                                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
   const cuuint64_t wdims[4] = {(cuuint64_t)cin8, (cuuint64_t)cout, 9, 1};
   const cuuint64_t row = 2ull * cin8, wstrides[3] = {row, row * cout, row * cout * 9};
   const cuuint32_t wbox[4] = {BK, DX ? 64u : (cuuint32_t)BN, 1, 1};
   if (!wgrad::tensor_map4(&a.bmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wk, wdims, wstrides, wbox,
                           CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  auto kernel = conv3x3_gemm<BN, DX, MB, KS>;
+  auto kernel = conv3x3_gemm<BN, DX, MB, KS, EPI>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)G::SMEM);
   if (err != cudaSuccess) return err;
@@ -455,7 +556,7 @@ cudaError_t launch(Args a, const void* src, int N, const void* wk, int cin8, int
     kernel<<<a.clusters, THREADS, G::SMEM, s>>>(a);
     return cudaGetLastError();
   }
-  const int fit = active_clusters<BN, DX, MB, KS>(a.splits, G::SMEM, s);
+  const int fit = active_clusters<BN, DX, MB, KS, EPI>(a.splits, G::SMEM, s);
   if (fit < 1) return cudaErrorInvalidConfiguration;
   a.clusters = std::min(a.clusters, fit);
   cudaLaunchConfig_t cfg = {};

@@ -52,7 +52,8 @@
 //     distributed shared memory in rank order: deterministic.
 //   * Epilogue: the float32 tile goes through shared memory over the dead
 //     ring; each thread stores 16 bytes, a warp whole pixel rows: the forward
-//     adds b rounded to T (as the TPU kernel takes it) and writes each
+//     adds b rounded to T (as the trainer's TPU kernel takes it; the decoder
+//     level's, up_level.cu, keeps it float32: bias_f32) and writes each
 //     parity's 32 channels (64 bytes in bf16, 128 in float32) at its output
 //     pixel; dx writes rows of 64 channels. Every output is rounded once to
 //     T, from float32 sums.
@@ -125,6 +126,7 @@ struct DcArgs {
   const float* w;       // forward: B, torch's w (cin, cout, 2, 2) float32
   const void* wk;       // dx: B, w as (cin, 4, cout) in T
   const float* bias;    // forward: (cout,) float32
+  int bias_f32;         // forward: 1 adds bias as it is, 0 rounded to T
   void* out;
   int H, W;             // forward: x's size, where the outputs go
   int cin, cout;
@@ -395,7 +397,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 2 : 1)
       const int n = m / hw, i = m % hw / a.W, jj = m % a.W;
       const size_t px = ((size_t)n * 2 * a.H + 2 * i + (par >> 1)) * 2 * a.W + 2 * jj + (par & 1);
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[e] += rnd<T>(a.bias[o + e]);
+      for (int e = 0; e < V; ++e) v[e] += a.bias_f32 ? a.bias[o + e] : rnd<T>(a.bias[o + e]);
       dst = static_cast<T*>(a.out) + px * a.cout + o;
     }
     *reinterpret_cast<uint4*>(dst) = pack16<T>(v);
@@ -495,16 +497,19 @@ cudaError_t launch(DcArgs a, int n, int splits, const void* src, const cuuint64_
 }  // namespace deconv
 
 // dtype: 0 = float32, 1 = bfloat16. x (N, H, W, cin) in that dtype; w
-// torch's (cin, cout, 2, 2) float32, as it lies; b (cout,) float32; out (N,
-// 2H, 2W, cout). Returns a cudaError_t (0 on success).
+// torch's (cin, cout, 2, 2) float32, as it lies; b (cout,) float32, added
+// rounded to the dtype (bias_f32 = 0: the trainer's) or as it is (1: the
+// decoder level's); out (N, 2H, 2W, cout). Returns a cudaError_t (0 on
+// success).
 extern "C" int deconv_launch(int dtype, const void* x, const float* w, const float* b, void* out,
-                             int N, int H, int W, int cin, int cout, void* stream) {
+                             int N, int H, int W, int cin, int cout, int bias_f32,
+                             void* stream) {
   using namespace deconv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cin % BK || cout % C || N < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   DcArgs a{};
-  a.w = w; a.bias = b; a.out = out; a.H = H; a.W = W; a.cin = cin; a.cout = cout;
-  a.rows = 1; a.width = N * H * W; a.ktiles = cin / BK;
+  a.w = w; a.bias = b; a.bias_f32 = bias_f32; a.out = out; a.H = H; a.W = W; a.cin = cin;
+  a.cout = cout; a.rows = 1; a.width = N * H * W; a.ktiles = cin / BK;
   const cuuint64_t es = dtype == 0 ? 4 : 2, px = (cuuint64_t)a.width;
   const cuuint64_t dims[4] = {(cuuint64_t)cin, px, 1, 1};
   const cuuint64_t strides[3] = {cin * es, px * cin * es, px * cin * es};

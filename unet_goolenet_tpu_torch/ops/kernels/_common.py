@@ -87,6 +87,15 @@ def blocked_taps(w: torch.Tensor, dtype) -> torch.Tensor:
     return (v.permute(0, 3, 1, 2) if dtype == torch.bfloat16 else v.permute(0, 3, 2, 1)).contiguous()
 
 
+def gemm_taps(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Co, Ci, 3, 3) -> (9, Co, Ci) bf16, wk[tap][co][ci] = w[co][ci]
+    [tap] (tap = 3 ky + kx): the B operand of csrc/conv3x3.cuh's bf16 GEMM,
+    which `conv.conv3x3_weight` lays out each training call; for fixed
+    weights, once."""
+    co, ci = w.shape[:2]
+    return w.detach().to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, co, ci).contiguous()
+
+
 def blocked_shape(co: int, ci: int, k: int, dtype) -> tuple:
     """Shape of `blocked_taps` of a (co, ci, k, k) weight."""
     if dtype == torch.bfloat16:

@@ -22,9 +22,9 @@ Sources: `csrc/conv.cu` (bf16 forward and dx on `csrc/conv3x3.cuh`'s TMA +
 wgmma GEMM, float32 on `csrc/dense_conv.cuh`), `csrc/deconv.cu` (its own
 TMA + wgmma GEMM; dW/db on `csrc/conv_dw.cuh`), `csrc/conv_dw.cuh` and
 `csrc/pool.cu`; bounds and design notes there. The conv's tiles and K split
-(`conv_plan`), the weight gradients' split (`wgrad_plan`) and the
-transposed conv's tiles (`deconv_plan`) are planned here, in plain Python
-that the CPU tests reach.
+(`conv_plan`; a decoder level's three, `level_plan`), the weight
+gradients' split (`wgrad_plan`) and the transposed conv's tiles
+(`deconv_plan`) are planned here, in plain Python that the CPU tests reach.
 Activations are dense NHWC, float32 or bfloat16; weights keep torch's
 layouts (conv OIHW, transposed conv (Cin, Cout, 2, 2)). The conv's are laid
 out once a forward call (`conv3x3_weight`, one launch, since training
@@ -351,6 +351,36 @@ def conv_plan(dx: bool, n: int, h: int, w: int, cin: int, cout: int, sms: int) -
                 best = (key, plan._replace(bn=bn, R=r_, S=s_, splits=splits, kper=kper,
                                            clusters=clusters))
     return best[1]
+
+
+class LevelPlan(NamedTuple):
+    """The three bf16 3x3-conv launches of one decoder level
+    (`csrc/up_level.cu`, after its transposed conv) on an n x h x w output:
+    `d2` (up, C -> C, GATE epilogue), `pair` (concat[up, gated], 2C -> cq)
+    and `blk1` (hh, cq -> cq; with the 1x1 head, 64-column tiles), each
+    `conv_plan`'s. `pair_slabs` names the source tensor and first channel of
+    each of the pair conv's K slabs, in K order: up's C/64 slabs, then
+    gated's, as the kernel's producer reads them from its two tensor maps."""
+    d2: ConvPlan
+    pair: ConvPlan
+    blk1: ConvPlan
+    pair_slabs: Tuple[Tuple[str, int], ...]
+
+    def ints(self) -> Tuple[int, ...]:
+        """(R, S, bn, splits, clusters) of each launch, as the kernel takes
+        them."""
+        return tuple(v for p in self[:3] for v in (p.R, p.S, p.bn, p.splits, p.clusters))
+
+
+@functools.lru_cache(maxsize=None)
+def level_plan(n: int, h: int, w: int, c: int, cq: int, sms: int) -> LevelPlan:
+    """The conv launches of a decoder level of C input and cq output
+    channels (multiples of 64) at output size h x w on a card of `sms` SMs."""
+    slabs = c // CV_BK
+    return LevelPlan(conv_plan(False, n, h, w, c, c, sms),
+                     conv_plan(False, n, h, w, 2 * c, cq, sms),
+                     conv_plan(False, n, h, w, cq, cq, sms),
+                     tuple((src, CV_BK * s) for src in ("up", "gated") for s in range(slabs)))
 
 
 def _gemm(x: torch.Tensor, wk: ConvWeight, scale, bias, relu: bool, out: torch.Tensor,
@@ -723,9 +753,9 @@ def deconv2x2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     n, h, wd, cin, cout = _deconv_check("deconv2x2", x, w)
     wk, bk = _f32("w", w, (cin, cout, 2, 2)), _f32("b", b, (cout,))
     out = torch.empty((n, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
-    rc = lib_fn("deconv_launch", [INT] + [PTR] * 4 + [INT] * 5 + [PTR])(
+    rc = lib_fn("deconv_launch", [INT] + [PTR] * 4 + [INT] * 6 + [PTR])(
         code, x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-        stream(x))
+        0, stream(x))
     launched("deconv2x2", rc)
     deconv2x2.launches += 1
     return out

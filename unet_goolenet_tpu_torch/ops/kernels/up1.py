@@ -17,8 +17,14 @@ Replaces the two Pallas TPU kernels of the JAX package's serving path:
 
 Both launch the dense levels' kernels at C = 64 (`up2.gate_launch`,
 `up2.level_launch`; sources `csrc/gate.cu`, `csrc/up_level.cu`, notes on
-bounds and design there), each with its own launch counter. They take dense
-NHWC tensors, float32 or bfloat16, with C = 64 channels, and accumulate in
+bounds and design there), each with its own launch counter. `up1_tail` is
+four launches: in bfloat16 the transposed conv on `csrc/deconv.cu`'s TMA +
+wgmma GEMM, d2 (with the gate), the pair conv and block1 on
+`csrc/conv3x3.cuh`'s, the head in block1's epilogue (the block's 64
+channels are one 64-column tile, so only the logits are written); in
+float32 on `csrc/dense_conv.cuh`'s `conv_kernel`. bf16 bound: the
+tensor-core work, 0.246 ms at batch 16 and 224^2. They take dense NHWC
+tensors, float32 or bfloat16, with C = 64 channels, and accumulate in
 float32. Between stages activations are rounded to the input dtype, and
 biases stay float32, as in the TPU kernels.
 
@@ -37,8 +43,7 @@ from unet_goolenet_tpu_torch.ops.conv import conv2d
 from unet_goolenet_tpu_torch.ops.kernels._common import (
     KernelWeights, bias, kernel_weights, round_to)
 from unet_goolenet_tpu_torch.ops.kernels.up2 import (
-    gate_launch, level_launch, up_gate_dense_ref, up_gate_weights, up_level_ref,
-    up_level_weights)
+    gate_launch, level_launch, level_layout, up_gate_dense_ref, up_gate_weights, up_level_ref)
 
 KERNEL_CHANNELS = 64
 
@@ -75,14 +80,15 @@ def _check_channels(t: torch.Tensor) -> None:
 
 def tail_weights(w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1, w_outc, b_outc,
                  dtype: torch.dtype) -> KernelWeights:
-    """Weights of `up1_tail` for activations of `dtype`, in the layouts
-    `up1_tail_ref` takes: the level's as `up_level_weights` lays them out,
-    then the head's (w_outc (C, ncls), b_outc)."""
+    """Weights of `up1_tail` for activations of `dtype`: on the CPU in the
+    layouts `up1_tail_ref` takes; on a card the level's as
+    `up2.level_layout` lays them out, then the head's (w_outc (C, ncls) in
+    `dtype`, b_outc)."""
     ncls, c = w_outc.shape[:2]
     plain = (w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1, w_outc, b_outc)
     return kernel_weights(
         dtype, plain,
-        lambda: (*up_level_weights(*plain[:8], dtype=dtype).kernel,
+        lambda: (*level_layout(*plain[:8], dtype=dtype),
                  w_outc.to(dtype).reshape(ncls, c).t().contiguous(), bias(b_outc)))
 
 

@@ -17,17 +17,27 @@ Replaces the JAX package's Pallas kernels of those levels:
     with a dense (N, H, W, cq) output at every level; `fused_up2`'s packed
     output is a TPU layout. (C, cq) = (128, 64), (256, 128), (512, 256).
 
-Sources: `csrc/gate.cu`, `csrc/up_level.cu` on `csrc/dense_conv.cuh`
-(notes on bounds, shared memory and launch split there). The kernels take
-dense NHWC tensors, float32 or bfloat16, with channel counts that are
-multiples of 64 and any even level size, and accumulate in float32. Stages
-are rounded to the input dtype at the TPU kernel's points; biases stay
-float32.
+Sources: `csrc/gate.cu` on `csrc/dense_conv.cuh`, and `csrc/up_level.cu`
+(notes on bounds, shared memory and launch split there). The level is four
+launches: in bfloat16 the transposed conv on `csrc/deconv.cu`'s TMA + wgmma
+GEMM and its three 3x3 convs on `csrc/conv3x3.cuh`'s (epilogues GATE, PAIR
+over two tensor maps, and AFFINE or the 1x1 head), tiled by
+`conv.level_plan`; in float32 four launches of `dense_conv.cuh`'s FMA
+`conv_kernel`. The bf16 level is bound by its tensor-core work (0.141 ms a
+level at batch 16 at 224^2); a block holds 96 KB of shared memory in the
+transposed conv and 202-214 KB in a 3x3 conv. It stays four launches
+because each conv needs the whole of the stage before over a halo at every
+channel, more than a block's 227 KB at these widths, so each stage waits
+for the last. The kernels take dense NHWC tensors, float32 or bfloat16,
+with channel counts that are multiples of 64 and any even level size, and
+accumulate in float32. Stages are rounded to the input dtype at the TPU
+kernel's points; biases stay float32.
 
 `up_gate_weights` / `up_level_weights` lay the folded weights out once (the
-engine does it in `fold_unet`). Each wrapper takes its plain version
-(`*_ref`) only for a tensor on the CPU. For a CUDA tensor it launches the
-kernel or raises. Each counts its calls that launch in `.launches`.
+engine does it in `fold_unet`): a level call launches no weight layout.
+Each wrapper takes its plain version (`*_ref`) only for a tensor on the
+CPU. For a CUDA tensor it launches the kernel or raises. Each counts its
+calls that launch in `.launches`.
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ import torch
 from unet_goolenet_tpu_torch.ops.conv import conv2d, conv_transpose2x2
 from unet_goolenet_tpu_torch.ops.kernels._common import (
     BLOCK, INT, PTR, KernelWeights, bias, blocked_shape, blocked_taps, check, check_blocks,
-    dense_channels, dtype_code, kernel_weights, launched, lib_fn, round_to, stream)
+    dense_channels, dtype_code, gemm_taps, kernel_weights, launched, lib_fn, round_to, stream)
+from unet_goolenet_tpu_torch.ops.kernels.conv import _sms, level_plan
 
 
 # ------------------------------------------------------------ plain versions
@@ -86,16 +97,37 @@ def deconv_as_conv1x1(w_up: torch.Tensor) -> torch.Tensor:
     return w_up.permute(2, 3, 1, 0).reshape(4 * co, ci, 1, 1)
 
 
+def level_layout(w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1, dtype: torch.dtype):
+    """The level kernel's weights in `dtype`'s layouts: bf16 w_up as it lies
+    in float32 (the transposed-conv GEMM reads it so) and each 3x3 conv as
+    `gemm_taps` (9, cout, cin); float32 w_up as a 1x1 conv with 4C outputs
+    and every conv in `blocked_taps`; biases float32."""
+    if dtype == torch.bfloat16:
+        convs = (gemm_taps(w_d2), gemm_taps(w_pair), gemm_taps(w_blk1))
+        wup = w_up.detach().float().contiguous()
+    else:
+        convs = tuple(blocked_taps(w, dtype) for w in (w_d2, w_pair, w_blk1))
+        wup = blocked_taps(deconv_as_conv1x1(w_up), dtype)
+    return (wup, bias(b_up), convs[0], bias(b_d2), convs[1], bias(b_pair), convs[2],
+            bias(b_blk1))
+
+
 def up_level_weights(w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1,
                      dtype: torch.dtype) -> KernelWeights:
-    """Weights of `up_level` for activations of `dtype`, in the layouts
-    `up_level_ref` takes."""
+    """Weights of `up_level` for activations of `dtype`: on the CPU in the
+    layouts `up_level_ref` takes, on a card as `level_layout` lays them out."""
     check_blocks(w_d2, w_pair, w_blk1)
-    return kernel_weights(dtype, (w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1),
-                          lambda: (blocked_taps(deconv_as_conv1x1(w_up), dtype), bias(b_up),
-                                   blocked_taps(w_d2, dtype), bias(b_d2),
-                                   blocked_taps(w_pair, dtype), bias(b_pair),
-                                   blocked_taps(w_blk1, dtype), bias(b_blk1)))
+    plain = (w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1)
+    return kernel_weights(dtype, plain, lambda: level_layout(*plain, dtype=dtype))
+
+
+def level_shapes(c: int, cq: int, dtype) -> tuple:
+    """Shapes and dtypes of `level_layout`'s w_up, w_d2, w_pair, w_blk1."""
+    if dtype == torch.bfloat16:
+        return (((c, c, 2, 2), torch.float32), ((9, c, c), dtype), ((9, cq, 2 * c), dtype),
+                ((9, cq, cq), dtype))
+    return tuple((blocked_shape(co, ci, k, dtype), dtype)
+                 for co, ci, k in ((4 * c, c, 1), (c, c, 3), (cq, 2 * c, 3), (cq, cq, 3)))
 
 
 def gate_launch(name: str, x: torch.Tensor, wts: KernelWeights):
@@ -133,11 +165,11 @@ def up_gate_dense(x: torch.Tensor, wts: KernelWeights):
 
 def level_launch(name: str, x: torch.Tensor, e1: torch.Tensor, gate1p: torch.Tensor,
                  wts: KernelWeights) -> torch.Tensor:
-    """One call of the level kernel (csrc/up_level.cu) on CUDA tensors:
-    (N, H, W, cq) from weights laid out as `up_level_weights` lays them out,
-    or the 1x1 head's (N, H, W, ncls) logits when the weights end with the
-    head's (w_outc (cq, ncls), b_outc), as `up1.tail_weights` lays them out.
-    Checks every argument first."""
+    """One call of the level kernel (csrc/up_level.cu, four launches) on
+    CUDA tensors: (N, H, W, cq) from weights laid out as `up_level_weights`
+    lays them out, or the 1x1 head's (N, H, W, ncls) logits when the weights
+    end with the head's (w_outc (cq, ncls), b_outc), as `up1.tail_weights`
+    lays them out. Checks every argument first."""
     code = dtype_code(name, x)
     n, h2, w2, c = x.shape
     h, wd = 2 * h2, 2 * w2
@@ -149,11 +181,9 @@ def level_launch(name: str, x: torch.Tensor, e1: torch.Tensor, gate1p: torch.Ten
     check("e1", e1, (n, h, wd, c), dt)
     g = gate1p.to(dt).contiguous()
     check("gate1p", g, (n, c), dt)
-    for arg, t, shape in (("w_up", wup, blocked_shape(4 * c, c, 1, dt)),
-                          ("w_d2", wd2, blocked_shape(c, c, 3, dt)),
-                          ("w_pair", wpair, blocked_shape(cq, 2 * c, 3, dt)),
-                          ("w_blk1", wblk1, blocked_shape(cq, cq, 3, dt))):
-        check(arg, t, shape, dt)
+    for arg, t, (shape, wdt) in zip(("w_up", "w_d2", "w_pair", "w_blk1"),
+                                    (wup, wd2, wpair, wblk1), level_shapes(c, cq, dt)):
+        check(arg, t, shape, wdt)
     for arg, t, k in (("b_up", b_up, c), ("b_d2", b_d2, c), ("b_pair", b_pair, cq),
                       ("b_blk1", b_blk1, cq)):
         check(arg, t, (k,), torch.float32)
@@ -166,17 +196,21 @@ def level_launch(name: str, x: torch.Tensor, e1: torch.Tensor, gate1p: torch.Ten
             raise ValueError(f"{name}: the 1x1 head takes cq={BLOCK}, got {cq}")
         check("w_outc", wout, (cq, ncls), dt)
         check("b_outc", b_outc, (ncls,), torch.float32)
+    plan = None
+    if dt == torch.bfloat16:
+        plan = (INT * 15)(*level_plan(n, h, wd, c, cq, _sms(dev.index)).ints())
     up = torch.empty((n, h, wd, c), device=dev, dtype=dt)
     gated = torch.empty_like(up)
     hh = torch.empty((n, h, wd, cq), device=dev, dtype=dt)
     out = torch.empty((n, h, wd, ncls or cq), device=dev, dtype=dt)
-    rc = lib_fn("up_level_launch", [INT] + [PTR] * 13 + [INT] + [PTR] * 4 + [INT] * 5 + [PTR])(
+    rc = lib_fn("up_level_launch", [INT] + [PTR] * 13 + [INT] + [PTR] * 4 + [INT] * 5
+                + [PTR] * 2)(
         code, x.data_ptr(), e1.data_ptr(), g.data_ptr(),
         wup.data_ptr(), b_up.data_ptr(), wd2.data_ptr(), b_d2.data_ptr(),
         wpair.data_ptr(), b_pair.data_ptr(), wblk1.data_ptr(), b_blk1.data_ptr(),
         wout.data_ptr() if head else None, b_outc.data_ptr() if head else None, ncls,
         up.data_ptr(), gated.data_ptr(), hh.data_ptr(), out.data_ptr(),
-        n, h, wd, c, cq, stream(x))
+        n, h, wd, c, cq, plan, stream(x))
     launched(name, rc)
     return out
 
