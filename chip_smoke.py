@@ -5,14 +5,17 @@ NVIDIA GPU.
 
 Phases, one line each (the first failure exits non-zero):
   1. device: CUDA must be available; the card's name and power limit.
-  2. build: compile the CUDA kernels from unet_goolenet_tpu_torch/csrc.
+  2. build: compile the CUDA kernels from unet_goolenet_tpu_torch/csrc; the
+     trainer's conv3x3_gemm instantiations (csrc/conv.cu) must use
+     TRAINER_GEMM_REGISTERS registers, as ptxas reports them.
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes for N=4 at 224^2 (up1: x1 4x224x224x64, y
      4x112x112x64; pool_down1: x1 4x224x224x64; up_gate_dense and up_level at
      up2, up3 and up4: (C, cq) = (128, 64) at 112^2, (256, 128) at 56^2,
      (512, 256) at 28^2) in float32 (TF32 off) and bfloat16, and at a ragged
-     level (up1 36x52; the others C = 256 at 20x28); the bf16 up1_tail and
-     up_level also against a second call, bit for bit.
+     level (up1 36x52; the others C = 256 at 20x28); the bf16 gates
+     (up1_gate, up_gate_dense), up1_tail and up_level also against a second
+     call, bit for bit.
   4. e2e, default configuration: 8 seeded gray PNGs (400x500 and 360x480)
      and two seeded reference-named checkpoints through `apps.infer_e2e.main`,
      bf16 then float32; result.txt must hold 8 grades in [0, 6) and both up1
@@ -31,10 +34,12 @@ Phases, one line each (the first failure exits non-zero):
      and up2 + down1 configurations in turns (forwards, then backwards);
      each kernel at batch 16 against its plain version and the default
      configuration's cuDNN path for the same work, with its bound; the bf16
-     level kernel's device time and launches by stage (deconv, d2 + gate
-     combine, pair conv, block1 or block1 + head, told apart by kernel name)
-     at up1 and each dense level, from a profiler trace, which must hold one
-     launch a stage and no weight layout; a per-layer split of one bf16
+     gate and level kernels' device time and launches by stage (the gate:
+     the conv with its statistics' partials, then their reduce; the level:
+     deconv, d2 + gate combine, pair conv, block1 or block1 + head; told
+     apart by kernel name) at up1 and each dense level, from a profiler
+     trace, which must hold one launch a stage (a gate call two in all) and
+     no weight layout; a per-layer split of one bf16
      batch-64 call; host time per bf16
      call at batch 16 and 64, and one profiler trace of each, and of one
      all-fused bf16 batch-64 call (device busy vs wall, host syncs, top
@@ -110,13 +115,13 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # largest |logit|: the same bound as the kernels' own float32 check
 SEG_TOL = 1e-4
 KERNELS = {
-    "up1_gate": ("unet_goolenet_tpu_torch/csrc/gate.cu",
+    "up1_gate": ("unet_goolenet_tpu_torch/csrc/conv3x3.cuh",
                  "unet_goolenet_tpu/ops/pallas/up1.py:480"),
     "up1_tail": ("unet_goolenet_tpu_torch/csrc/up_level.cu",
                  "unet_goolenet_tpu/ops/pallas/up1.py:521"),
     "pool_down1": ("unet_goolenet_tpu_torch/csrc/down1.cu",
                    "unet_goolenet_tpu/ops/pallas/down1.py:108"),
-    "up_gate_dense": ("unet_goolenet_tpu_torch/csrc/gate.cu",
+    "up_gate_dense": ("unet_goolenet_tpu_torch/csrc/conv3x3.cuh",
                       "unet_goolenet_tpu/ops/pallas/up2.py:126"),
     "up_level": ("unet_goolenet_tpu_torch/csrc/up_level.cu",
                  "unet_goolenet_tpu/ops/pallas/up2.py:299"),
@@ -528,16 +533,40 @@ def phase_device() -> str:
     return card
 
 
+def trainer_gemm_registers(log: str) -> dict:
+    """ptxas's registers of each conv3x3_gemm instantiation that csrc/conv.cu
+    compiles (the trainer's; the file's name is in the mangled name of its
+    anonymous namespace), by template arguments."""
+    regs, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        t = entry and re.search(r"_conv_cu_\w*conv3x3_gemmI(Li\d+ELb[01]ELi\d+ELi\d+ELi\d+E)E",
+                                entry)
+        if m and t:   # Li128ELb0ELi1ELi4ELi0E -> <128, false, 1, 4, 0>
+            args = [("true" if v == "1" else "false") if k == "b" else v
+                    for k, v in re.findall(r"L([ib])(\d+)E", t.group(1))]
+            regs[f"<{', '.join(args)}>"] = int(m.group(1))
+    return regs
+
+
 def phase_build() -> None:
     from unet_goolenet_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
-    regs = [ln.split(":", 1)[1].strip() for ln in path.with_suffix(".log").read_text().splitlines()
-            if "registers" in ln]
+    log = path.with_suffix(".log").read_text()
+    regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln]
+    trainer = trainer_gemm_registers(log)
     say("build", seconds=f"{time.perf_counter() - t0:.2f}", library=os.path.relpath(path, ROOT),
-        ptxas=repr("; ".join(regs)))
+        trainer_conv3x3_gemm_registers=repr(trainer), ptxas=repr("; ".join(regs)))
+    if not trainer or set(trainer.values()) != {TRAINER_GEMM_REGISTERS}:
+        fail(f"the trainer's conv3x3_gemm instantiations use {trainer} registers, "
+             f"expected {TRAINER_GEMM_REGISTERS}")
 
 
 def dname(dtype) -> str:
@@ -567,7 +596,8 @@ def phase_kernels(dev) -> dict:
                 ok = worst_rel <= KERNEL_TOL[dtype]
                 extra = {}
                 if dtype == torch.bfloat16 and case.name in REPEATED_SERVING:
-                    extra["repeats_bitwise"] = torch.equal(out, case.kern())
+                    extra["repeats_bitwise"] = all(
+                        torch.equal(a, b) for a, b in zip(_tup(out), _tup(case.kern())))
                 say("kernel", name=case.name, dtype=dname(dtype), shape=repr(case.label),
                     max_abs_err=f"{worst_abs:.3e}", max_rel_err=f"{worst_rel:.3e}",
                     tol=f"{KERNEL_TOL[dtype]:.0e}", ok=ok, **extra)
@@ -739,65 +769,87 @@ def time_kernels(dev) -> dict:
 
 # the bf16 level's launches (csrc/up_level.cu): the transposed conv's GEMM,
 # then conv3x3_gemm by its epilogue (csrc/conv3x3.cuh EPI, the last template
-# argument); the weight-layout kernels, which a level call must not launch
-LEVEL_STAGES = {"1": "d2_gate", "2": "pair", "0": "block1", "3": "block1_head"}
+# argument); the gate pass's (csrc/gate.cu): conv3x3_gemm's STATS epilogue,
+# then the partials' reduce; the weight-layout kernels, which neither call
+# may launch
+LEVEL_STAGES = {"1": "d2_gate", "2": "pair", "0": "block1", "3": "block1_head",
+                "4": "gate_conv"}
+STATS_KERNEL = "gate_stats_kernel"
 LAYOUT_KERNELS = ("weight_bf16_kernel", "weight_f32_kernel", "dx_weight_kernel")
 # serving kernels whose bf16 call must repeat bit for bit
-REPEATED_SERVING = ("up1_tail", "up_level")
+REPEATED_SERVING = ("up1_gate", "up1_tail", "up_gate_dense", "up_level")
+# the ptxas registers of the trainer's conv3x3_gemm instantiations (csrc/conv.cu),
+# which the serving epilogues on the same kernel must not move
+TRAINER_GEMM_REGISTERS = 136
 
 
 def level_stage(kernel: str) -> str:
-    """The stage of the bf16 level that a device event of this name is."""
+    """The stage of a bf16 level or gate call that a device event of this
+    name is."""
     if "deconv_gemm<" in kernel:
         return "deconv"
+    if STATS_KERNEL in kernel:
+        return "stats_reduce"
     m = re.search(r"conv3x3_gemm<\d+, (?:true|false), \d+, \d+, (\d+)>", kernel)
     if m:
         return LEVEL_STAGES.get(m.group(1), "other")
     return "layout" if any(k in kernel for k in LAYOUT_KERNELS) else "other"
 
 
-def level_stages(dev, calls: int = 10) -> None:
-    """The bf16 level kernel's device time and launches by stage, batch 16,
-    at up1 (with the head, as up1_tail) and each dense level (up_level),
-    from a profiler trace of `calls` calls: what each of its launches costs.
-    Fails unless each call launched the deconv and the three convs once
-    each and no weight layout ("other" is the wrapper's cast of the gate).
+def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
+    """The bf16 gate and level kernels' device time and launches by stage,
+    batch 16, at up1 (the gate as up1_gate, the level with the head as
+    up1_tail) and each dense level (up_gate_dense, up_level), from a
+    profiler trace of `calls` calls: what each of its launches costs. Fails
+    unless each level call launched the deconv and the three convs once
+    each and no weight layout ("other" is the wrapper's cast of the gate),
+    and each gate call the conv and the reduce once each and nothing else.
     The trace may lose the device events of the first calls after it
     starts, so one call runs in the profiler's warm-up step, whose events
-    are dropped, and the `calls` in its recorded step."""
+    are dropped, and the `calls` in its recorded step. A trace can still
+    lose a few events (one run counted 0.8 and 0.9 launches a call of a
+    gate's two kernels): a count that is not a whole number a call can only
+    be such a loss, so that trace is taken again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     levels = tuple((h, h, c, cq) for h, c, cq in LEVELS)
     cases = (up1_cases(16, 224, 224, torch.bfloat16, dev, SEED + 7)
              + dense_cases(16, (224, 224), levels, torch.bfloat16, dev, SEED + 7))
     for case in cases:
-        if case.name not in ("up1_tail", "up_level"):
+        if case.name not in ("up1_gate", "up1_tail", "up_gate_dense", "up_level"):
             continue
         case.kern()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for n in (1, calls):   # the warm-up step, then the recorded one
-                for _ in range(n):
-                    case.kern()
-                torch.cuda.synchronize()
-                prof.step()
-        ms, count = {}, {}
-        for e in prof.key_averages():
-            if device_us(e) <= 0 or not str(e.device_type).endswith("CUDA"):
-                continue
-            stage = level_stage(e.key)
-            ms[stage] = ms.get(stage, 0.0) + device_us(e) / 1e3 / calls
-            count[stage] = count.get(stage, 0) + e.count / calls
+        for trace in range(1, tries + 1):
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for n in (1, calls):   # the warm-up step, then the recorded one
+                    for _ in range(n):
+                        case.kern()
+                    torch.cuda.synchronize()
+                    prof.step()
+            ms, count = {}, {}
+            for e in prof.key_averages():
+                if device_us(e) <= 0 or not str(e.device_type).endswith("CUDA"):
+                    continue
+                stage = level_stage(e.key)
+                ms[stage] = ms.get(stage, 0.0) + device_us(e) / 1e3 / calls
+                count[stage] = count.get(stage, 0) + e.count / calls
+            if all(v == round(v) for v in count.values()):
+                break
         if not ms:
             say("timing", what=f"{case.name}_stages", shape=repr(case.label),
                 device_time="not measured (the trace holds no device time)")
             continue
-        last = "block1_head" if case.name == "up1_tail" else "block1"
         say("timing", what=f"{case.name}_stages", shape=repr(case.label), dtype="bfloat16",
-            batch=16, launches_per_call=sum(count.values()),
+            batch=16, traces=trace, launches_per_call=sum(count.values()),
             **{f"{k}_launches": v for k, v in count.items()}, sum_ms=f"{sum(ms.values()):.4f}",
             **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()})
+        if case.name in ("up1_gate", "up_gate_dense"):
+            if count != {"gate_conv": 1, "stats_reduce": 1}:
+                fail(f"{case.name}: expected the conv and the reduce once each, got {count}")
+            continue
+        last = "block1_head" if case.name == "up1_tail" else "block1"
         if count.get("layout") or any(count.get(k) != 1 for k in ("deconv", "d2_gate", "pair",
                                                                   last)):
             fail(f"{case.name}: expected one launch a stage and no weight layout, got {count}")

@@ -23,7 +23,9 @@ blocks write, and one pass writes at most 0.5 GB of partials. So is the
 transposed conv's tiling (`deconv_plan`), at the trainer's 4 levels and the
 kernel tests' edges: every output element is written by one block, once.
 A decoder level's three conv launches (`level_plan`) are held the same way
-at the model's levels at the serving batches and at ragged sizes.
+at the model's levels at the serving batches and at ragged sizes, and the
+gate pass's statistics slots (`ConvPlan.stats_slots`, `slot_pixels`): each
+image's slots hold each of its pixels once.
 
 On a GPU host without JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_train_kernels.py`. There each kernel, forward and every
@@ -244,8 +246,9 @@ def test_conv_plan_covers_every_output_once(n, h, w, cin, cout, dx):
 # levels at the serving batches 16 and 64 (224^2 images), the ragged levels
 # chip_smoke.py runs (up1 36x52, a C = 256 level at 20x28) and the cuda
 # tests' sizes
-LEVELS = tuple((n, h, h, c, cq) for n in (16, 64) for h, c, cq in
-               ((224, 64, 64), (112, 128, 64), (56, 256, 128), (28, 512, 256))) + (
+LEVEL_WIDTHS = ((224, 64), (112, 128), (56, 256), (28, 512))   # (size, C) of up1-up4
+LEVELS = tuple((n, h, h, c, c // 2 if c > 64 else c) for n in (16, 64)
+               for h, c in LEVEL_WIDTHS) + (
     (2, 36, 52, 64, 64), (2, 20, 28, 256, 128), (2, 16, 32, 64, 64), (2, 20, 36, 64, 64),
     (2, 16, 32, 128, 64), (2, 16, 28, 512, 256))
 
@@ -283,6 +286,41 @@ def test_level_plan_covers_every_output_once(n, h, w, c, cq):
     if cq == 64:   # the head: one 64-column tile a pixel, one K slab
         assert plan.blk1.bn == 64 and plan.blk1.splits == 1
     assert len(plan.ints()) == 15
+
+
+# a gate pass's (n, h, w, C): the model's four levels at the serving batches,
+# a ragged level of each tile width (the last tile reaches past the image),
+# and the K-split levels (28^2 and 14^2 at C = 512)
+RAGGED_GATES = ((2, 26, 38, 64), (2, 16, 32, 128))
+SPLIT_GATES = ((2, 28, 28, 512), (2, 14, 14, 512))
+GATES = tuple((n, h, h, c) for n in (16, 64) for h, c in LEVEL_WIDTHS) + RAGGED_GATES + SPLIT_GATES
+
+
+@pytest.mark.parametrize("n,h,w,c", GATES)
+def test_gate_stats_slots_cover_each_image_once(n, h, w, c):
+    """The gate's bf16 plan is conv_plan's (C -> C), and its statistics
+    partials are rtiles ctiles splits slots an image, one a (M tile, rank).
+    A rank sums into its slot the pixels it stores that lie in the image:
+    so the slots of an image hold each of its pixels once and no other
+    image's (checked on the first and the last image)."""
+    p = K.conv_plan(False, n, h, w, c, c, SMS)
+    per = p.rtiles * p.ctiles
+    assert p.stats_slots == per * p.splits and p.mtiles == n * per
+    for img in (0, n - 1):
+        slots = {}
+        for mt in range(img * per, (img + 1) * per):
+            for rank in range(p.splits):
+                at, slot = p.stats_slot(mt, rank)
+                assert at == img and slot not in slots
+                slots[slot] = p.slot_pixels(mt, rank)
+        assert sorted(slots) == list(range(p.stats_slots))
+        px = np.concatenate([np.asarray(v, np.int64) for v in slots.values()]) - img * h * w
+        assert px.min() >= 0 and px.max() < h * w
+        np.testing.assert_array_equal(np.bincount(px, minlength=h * w), 1)
+    if (n, h, w, c) in RAGGED_GATES:
+        assert p.rtiles * p.R > h or p.ctiles * p.S > w
+    if (n, h, w, c) in SPLIT_GATES:
+        assert p.splits > 1
 
 
 # ------------------------------------------------------------------ the weight-gradient plan

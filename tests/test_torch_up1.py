@@ -178,8 +178,10 @@ CUDA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w", [(16, 32), (20, 36)])
+@pytest.mark.parametrize("h,w", [(16, 32), (20, 36), (14, 14), (26, 38)])
 def test_gate_kernel_matches_plain(cuda, dtype, h, w):
+    """Small levels, one tile an image at 14x14, and ragged ones (the bf16
+    tiles of 16x32 and 26x38 reach past the image's last column)."""
     d = make_inputs(5, 2, h, w, 64, 1)
     x1 = torch.from_numpy(d["x1"]).to(cuda, dtype)
     wt, b = oihw(d["w_e1"]).to(cuda), torch.from_numpy(d["b_e1"]).to(cuda)

@@ -5,14 +5,18 @@ versions.
 The JAX side runs `fused_cbn_stats_dense` / `fused_up_dense` in Pallas
 interpret mode, as tests/test_pallas.py does. Inputs come from numpy seeds,
 in JAX layouts, and are carried to the port's layouts here. Tolerance 1e-4
-in float32: only summation order differs. The bf16 level's fold-time
-weight layout is held to F.conv2d on the CPU.
+in float32: only summation order differs. The bf16 level's and gate's
+fold-time weight layouts are held to F.conv2d on the CPU, and the bf16
+gate's statistics, as per-tile partials over `conv_plan`'s slots reduced
+in slot order, to the plain version's.
 
 The CUDA tests need a card and nvcc; without them they skip. On a GPU host
 without JAX they run with `python -m pytest --noconftest -m cuda
 tests/test_torch_up2.py` (JAX is imported only inside the fixture of the JAX
 comparisons).
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -131,8 +135,12 @@ def test_cpu_wrappers_take_the_plain_version():
 
 def test_cpu_wrappers_take_the_plain_version_in_bf16():
     """bf16 weights laid out for the CPU are the plain version's, as given
-    (the kernel layouts are made only for weights on a card); the wrapper
-    returns the plain version's result and counts no launch."""
+    (the kernel layouts are made only for weights on a card); the wrappers
+    return the plain versions' results and count no launch. On a card the
+    gate's bf16 weight is `gemm_taps`' (9, C, C), over which a conv is
+    F.conv2d's over the weight rounded to bf16."""
+    from unet_goolenet_tpu_torch.ops.conv import conv2d
+
     d = make_inputs(7, 1, 8, 12, 64, 64)
     args = level_args(d, dtype=torch.bfloat16)
     wts = K.up_level_weights(*args[3:], dtype=torch.bfloat16)
@@ -141,6 +149,51 @@ def test_cpu_wrappers_take_the_plain_version_in_bf16():
     got = K.up_level(*args[:3], wts)
     assert got.dtype == torch.bfloat16 and K.up_level.launches == n0
     torch.testing.assert_close(got, K.up_level_ref(*args), rtol=0, atol=0)
+
+    x, w, b = gate_args(d, dtype=torch.bfloat16)
+    gw = K.up_gate_weights(w, b, torch.bfloat16)
+    assert gw.kernel == () and gw.plain[0] is w and gw.plain[1] is b
+    n0 = K.up_gate_dense.launches
+    for g, r in zip(K.up_gate_dense(x, gw), K.up_gate_dense_ref(x, w, b)):
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert K.up_gate_dense.launches == n0
+    wk, bk = K.gate_layout(w, b, torch.bfloat16)
+    assert tuple(wk.shape) == K.gate_shape(64, torch.bfloat16) == (9, 64, 64)
+    assert wk.dtype == torch.bfloat16 and wk.is_contiguous() and torch.equal(wk, K.gemm_taps(w))
+    assert bk.dtype == torch.float32 and torch.equal(bk, b)
+    xf = x.float()
+    torch.testing.assert_close(conv_by_taps(xf, wk),
+                               conv2d(xf, w.to(torch.bfloat16).float(), padding=1),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 20, 28, 256), (2, 14, 14, 512)])
+def test_gate_stats_partials_reduce_to_the_plain_statistics(n, h, w, c):
+    """The bf16 gate's statistics as its kernels take them, in plain torch:
+    each (M tile, rank) of `conv_plan` sums and maxes the float32 e1 of the
+    pixels `slot_pixels` names into its slot (0 and 0 for none), and each
+    image's slots are reduced in slot order. At these levels K splits (2
+    and 3 ranks). The result is the plain version's mean and max."""
+    from unet_goolenet_tpu_torch.ops.kernels.conv import conv_plan
+
+    e1, mean, mx = K.up_gate_dense_ref(*gate_args(make_inputs(11, n, h, w, c, c)))
+    p = conv_plan(False, n, h, w, c, c, 132)   # an H100 SXM's SMs
+    assert p.splits > 1
+    flat = e1.reshape(n * h * w, c)
+    psum = torch.zeros(n, p.stats_slots, c)
+    pmax = torch.zeros(n, p.stats_slots, c)
+    for mt in range(p.mtiles):
+        for rank in range(p.splits):
+            img, slot = p.stats_slot(mt, rank)
+            px = p.slot_pixels(mt, rank)
+            if px:
+                psum[img, slot], pmax[img, slot] = flat[px].sum(0), flat[px].amax(0)
+    s, m = torch.zeros(n, c), torch.zeros(n, c)
+    for slot in range(p.stats_slots):
+        s, m = s + psum[:, slot], torch.maximum(m, pmax[:, slot])
+    torch.testing.assert_close(s / (h * w), mean, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(m, mx, rtol=1e-6, atol=1e-6)
 
 
 def conv_by_taps(x, wk):
@@ -202,9 +255,15 @@ def worst(got, ref) -> float:
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+# the gate's cuda cases (h, w, c) at batch 2: ragged and K split (2 ranks),
+# K split at 28^2 and 14^2 (2 and 3 ranks), and a ragged level whose last
+# tile row and column reach past the image
+GATE_KERNEL_CASES = [(16, 32, 128), (20, 28, 256), (28, 28, 512), (14, 14, 512), (26, 38, 256)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,c", [(16, 32, 128), (20, 28, 256)])
+@pytest.mark.parametrize("h,w,c", GATE_KERNEL_CASES)
 def test_gate_kernel_matches_plain(cuda, dtype, h, w, c):
     d = make_inputs(5, 2, h, w, c, c)
     x, wt, b = gate_args(d, cuda, dtype)
@@ -214,6 +273,60 @@ def test_gate_kernel_matches_plain(cuda, dtype, h, w, c):
     assert K.up_gate_dense.launches == n0 + 1
     for g, r in zip(got, K.up_gate_dense_ref(x, wt, b)):
         assert worst(g, r) <= CUDA_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(28, 28, 512), (14, 14, 512), (26, 38, 256)])
+def test_bf16_gate_repeats_bit_for_bit(cuda, h, w, c):
+    """Two calls on the same inputs give the same bits: e1 and the
+    statistics, whose partials are summed in a fixed order (K split at
+    these levels; no float atomics)."""
+    x, wt, b = gate_args(make_inputs(12, 2, h, w, c, c), cuda, torch.bfloat16)
+    wts = K.up_gate_weights(wt, b, torch.bfloat16)
+    for g, r in zip(K.up_gate_dense(x, wts), K.up_gate_dense(x, wts)):
+        assert torch.equal(g, r)
+
+
+def device_launches(fn, calls: int = 4, tries: int = 3) -> dict:
+    """Launches a call of fn by device kernel name, from a profiler trace of
+    `calls` calls after a warm-up step (whose events, which a trace may
+    lose, are dropped). A trace can still lose an event, which shows as a
+    count that is not a whole number a call: it is then taken again, up to
+    `tries` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for n in (1, calls):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        per = {}
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                per[e.key] = per.get(e.key, 0) + e.count / calls
+        if per and all(v == round(v) for v in per.values()):
+            break
+    return per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_call_launches_the_conv_and_the_reduce(cuda, dtype):
+    """A gate call is two device launches, the conv with the statistics'
+    partials (bf16: conv3x3_gemm's STATS epilogue, EPI 4; float32:
+    dense_conv.cuh's conv_kernel) and gate_stats_kernel: no weight layout."""
+    x, wt, b = gate_args(make_inputs(13, 2, 28, 28, 512, 512), cuda, dtype)
+    wts = K.up_gate_weights(wt, b, dtype)
+    per = device_launches(lambda: K.up_gate_dense(x, wts))
+    conv = r"conv3x3_gemm<\d+, false, \d+, \d+, 4>" if dtype == torch.bfloat16 else "conv_kernel<"
+    assert sum(per.values()) == 2, per
+    assert sum(v for k, v in per.items() if re.search(conv, k)) == 1, per
+    assert sum(v for k, v in per.items() if "gate_stats_kernel" in k) == 1, per
 
 
 @pytest.mark.cuda

@@ -76,8 +76,19 @@
 //     warp-uniformly and masks the store, so the shuffles never lose a
 //     lane at the image edge; wout (64 x ncls bf16) is read through L1;
 //     64 input channels are one K slab, so the head never splits K.
+//     And for the gate pass of gate.cu, STATS: e1 = round(relu(acc + b)),
+//     plus the per-image, per-channel sum and max of the float32 relu(acc +
+//     b) before rounding. Each thread sums its column over the pixels it
+//     stores (inside the image: never a pad column or a row past it); the
+//     threads that share a column reduce by shuffles within a warp, then
+//     over the 8 warps through 8 KB of shared memory past the barriers, in
+//     a fixed order; one partial a (M tile, rank) goes to psum / pmax (N,
+//     rtiles ctiles splits, C), slot (tile in image) splits + rank, written
+//     in every call (0 and 0 for a rank with no pixels; relu makes 0 the
+//     max's identity), and gate.cu's second launch sums the slots in order.
+//     No float atomics: two calls give the same bits.
 // Shared memory: 214 KB a block (BN = 128) or 202 KB (BN = 64, MB = 2), in
-// every epilogue mode.
+// every epilogue mode; STATS 8 KB (4 KB) more.
 #pragma once
 
 #include <algorithm>
@@ -107,7 +118,7 @@ constexpr int MAX_HW = 32;    // the widest halo row, S + 2
 constexpr int ASTAGES = 2;
 constexpr int BSTAGES = 6;
 // epilogue modes (EPI); AFFINE is the trainer's
-enum { AFFINE = 0, GATE = 1, PAIR = 2, HEAD = 3 };
+enum { AFFINE = 0, GATE = 1, PAIR = 2, HEAD = 3, STATS = 4 };
 
 // BN columns; GEMM rows BM = 128 MB, each warpgroup MB blocks of 64 (BN =
 // 64 takes MB = 2, so that a weight tile serves 256 rows)
@@ -128,6 +139,8 @@ template <int BN, int MB> struct Geo {
   static constexpr int TOFF = AOFF + ASTAGES * ABYTES;
   static constexpr int BAROFF = TOFF + TILE;
   static constexpr size_t SMEM = (size_t)BAROFF + 16 * (BSTAGES + ASTAGES);
+  // STATS only, past the barriers: each consumer warp's column sums, then maxima
+  static constexpr int STATS_BYTES = 2 * (CONSUMERS / 32) * BN * 4;
   static_assert(BBYTES % 1024 == 0 && ABYTES % 1024 == 0, "boxes on a 1024-byte swizzle period");
 };
 
@@ -149,6 +162,9 @@ struct Args {
   const void* wout;      // HEAD: (ncols, ncls) bf16
   const float* bout;     // HEAD: (ncls,)
   int ncls;
+  // the gate pass's statistics (STATS): (N, rtiles ctiles splits, ncols)
+  float* psum;
+  float* pmax;
 };
 
 // 8 bf16 at a 16-byte aligned p, as float
@@ -407,6 +423,11 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_gemm(const __grid_constant
       float gp[8];
       if constexpr (EPI == GATE)   // the tile's image's 1 + gate (ncols a multiple of 64)
         unpack16(static_cast<const bf16*>(a.g1p) + (size_t)img * a.ncols + col, gp);
+      float ssum[8], smax[8];   // STATS: the column's sum and max over this thread's pixels
+      if constexpr (EPI == STATS) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ssum[e] = smax[e] = 0.f;
+      }
       for (int po = rank * rows + threadIdx.x / G::CPR; nv > 0 && po < p1;
            po += CONSUMERS / G::CPR) {
         const int ry = po / a.S, sx = po % a.S, r = rt * a.R + ry, x = ct * a.S + sx;
@@ -434,6 +455,13 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_gemm(const __grid_constant
           if (a.relu) v[e] = fmaxf(v[e], 0.f);
         }
         const size_t o = (((size_t)img * a.H + r) * a.W + x) * a.ncols + col;
+        if constexpr (EPI == STATS) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            ssum[e] += v[e];
+            smax[e] = fmaxf(smax[e], v[e]);
+          }
+        }
         if constexpr (EPI == GATE) {   // v is relu(d2 + b): gated = e1 + round(g1p round(v))
           float e1v[8];
           unpack16(static_cast<const bf16*>(a.e1) + o, e1v);
@@ -445,6 +473,41 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_gemm(const __grid_constant
           *reinterpret_cast<uint4*>(dst) = pack16<bf16>(v);
         } else {
           for (int e = 0; e < nv; ++e) dst[e] = from_f<bf16>(v[e]);
+        }
+      }
+      if constexpr (EPI == STATS) {
+        // the lanes of a warp that share the column (q, q + CPR, ...), then
+        // the 8 warps in order: one partial a (tile, rank)
+#pragma unroll
+        for (int off = G::CPR; off < 32; off *= 2)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            ssum[e] += __shfl_xor_sync(0xffffffffu, ssum[e], off);
+            smax[e] = fmaxf(smax[e], __shfl_xor_sync(0xffffffffu, smax[e], off));
+          }
+        constexpr int WARPS = CONSUMERS / 32;
+        float* st = reinterpret_cast<float*>(smem + G::SMEM);   // [sum, max][warp][BN]
+        if (lane < G::CPR) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            st[warp * BN + q * 8 + e] = ssum[e];
+            st[(WARPS + warp) * BN + q * 8 + e] = smax[e];
+          }
+        }
+        consumers_sync();
+        const int c = threadIdx.x;
+        if (c < BN && nt * BN + c < a.ncols) {
+          float s = 0.f, m = 0.f;
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) {
+            s += st[w * BN + c];
+            m = fmaxf(m, st[(WARPS + w) * BN + c]);
+          }
+          const int per = a.rtiles * a.ctiles;
+          const size_t o = ((size_t)img * per * a.splits + (mt % per) * a.splits + rank) * a.ncols +
+                           nt * BN + c;
+          a.psum[o] = s;
+          a.pmax[o] = m;
         }
       }
     }
@@ -531,6 +594,7 @@ template <int BN, bool DX, int MB, int KS, int EPI = AFFINE>
 cudaError_t launch(Args a, const void* src, int N, const void* wk, int cin8, int cout,
                    cudaStream_t s, const void* src2 = nullptr) {
   using G = Geo<BN, MB>;
+  const size_t smem = G::SMEM + (EPI == STATS ? G::STATS_BYTES : 0);
   if (a.R * (a.S + 2) > G::BM) return cudaErrorInvalidValue;
   const int C = a.C;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)a.W, (cuuint64_t)a.H, (cuuint64_t)N};
@@ -550,19 +614,19 @@ cudaError_t launch(Args a, const void* src, int N, const void* wk, int cin8, int
     return cudaErrorInvalidValue;
   auto kernel = conv3x3_gemm<BN, DX, MB, KS, EPI>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)G::SMEM);
+                                         (int)smem);
   if (err != cudaSuccess) return err;
   if (a.splits == 1) {
-    kernel<<<a.clusters, THREADS, G::SMEM, s>>>(a);
+    kernel<<<a.clusters, THREADS, smem, s>>>(a);
     return cudaGetLastError();
   }
-  const int fit = active_clusters<BN, DX, MB, KS, EPI>(a.splits, G::SMEM, s);
+  const int fit = active_clusters<BN, DX, MB, KS, EPI>(a.splits, smem, s);
   if (fit < 1) return cudaErrorInvalidConfiguration;
   a.clusters = std::min(a.clusters, fit);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.clusters * a.splits);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = G::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;

@@ -1,6 +1,6 @@
 // The convolution machinery under dense_conv.cuh's conv_kernel, which runs
-// the gate and encoder kernels and the float32 decoder level (gate.cu,
-// down1.cu, up_level.cu).
+// the encoder kernel and the float32 gate pass and decoder level (down1.cu,
+// gate.cu, up_level.cu).
 //
 // Layout: activations are dense NHWC with C = 64 channels, element type T =
 // float or __nv_bfloat16. Inside a block every activation tile lives in

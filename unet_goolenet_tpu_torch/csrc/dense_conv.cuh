@@ -1,9 +1,10 @@
-// One implicit-GEMM convolution kernel for the gate passes and pool + down1
-// (gate.cu, down1.cu), and in float32 for the decoder levels and the
-// training convolutions (up_level.cu, conv.cu; their bf16 runs on
+// One implicit-GEMM convolution kernel for pool + down1 (down1.cu), and in
+// float32 for the gate passes, the decoder levels and the training
+// convolutions (gate.cu, up_level.cu, conv.cu; their bf16 runs on
 // conv3x3.cuh and deconv.cu), where channel counts run from 3 to 1024 and
 // neither the weights nor an intermediate of a whole level fit in a block's
-// shared memory. DECONV, GATE and HEAD serve only the float32 level now.
+// shared memory. DECONV, GATE and HEAD serve only the float32 level now,
+// STATS only the float32 gate pass.
 //
 // conv_kernel<T, K, SRC, MODE> computes, for one 8x16-pixel output tile of
 // one image and one block of 64 output channels (grid: tiles x cout/64 x N),

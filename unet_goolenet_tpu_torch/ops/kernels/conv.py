@@ -270,14 +270,19 @@ class ConvPlan(NamedTuple):
     def grid(self) -> int:
         return self.clusters * self.splits
 
+    def _tile(self, mt: int):
+        """Output pixel po = row * S + column of M tile mt, for each po < R
+        S, as image * h * w + row * w + column, or None past the image."""
+        ct, rest = mt % self.ctiles, mt // self.ctiles
+        rt, img = rest % self.rtiles, rest // self.rtiles
+        return [(img * self.h + r) * self.w + j if r < self.h and j < self.w else None
+                for r in range(rt * self.R, rt * self.R + self.R)
+                for j in range(ct * self.S, ct * self.S + self.S)]
+
     def pixels(self, mt: int):
         """The output pixels (image * h * w + row * w + column) of M tile
         mt, in tile order; the tile's other rows are discarded."""
-        ct, rest = mt % self.ctiles, mt // self.ctiles
-        rt, img = rest % self.rtiles, rest // self.rtiles
-        return [(img * self.h + r) * self.w + j
-                for r in range(rt * self.R, min(self.h, rt * self.R + self.R))
-                for j in range(ct * self.S, min(self.w, ct * self.S + self.S))]
+        return [p for p in self._tile(mt) if p is not None]
 
     def blocks(self):
         """(rank, cluster, its tiles, first K tile, K tiles) of each block,
@@ -295,6 +300,23 @@ class ConvPlan(NamedTuple):
         px, cpr = self.R * self.S, self.bn // 8
         per = -(-px // self.splits)
         return range(rank * per * cpr, min(px, (rank + 1) * per) * cpr)
+
+    @property
+    def stats_slots(self) -> int:
+        """Slots an image of the gate pass's statistics partials (the STATS
+        epilogue): one a (M tile of the image, rank)."""
+        return self.rtiles * self.ctiles * self.splits
+
+    def stats_slot(self, mt: int, rank: int) -> Tuple[int, int]:
+        """(image, slot) of the partial that rank `rank` of M tile mt writes."""
+        per = self.rtiles * self.ctiles
+        return mt // per, mt % per * self.splits + rank
+
+    def slot_pixels(self, mt: int, rank: int):
+        """The image pixels whose statistics rank `rank` of M tile mt sums
+        into its slot: those of the pixels it stores that lie in the image."""
+        cpr, st = self.bn // 8, self.stores(rank)
+        return [p for p in self._tile(mt)[st.start // cpr:st.stop // cpr] if p is not None]
 
 
 CV_BM = {64: 256, 128: 128}   # csrc/conv3x3.cuh: GEMM rows of a tile, by its columns

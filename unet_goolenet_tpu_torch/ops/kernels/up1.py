@@ -17,13 +17,17 @@ Replaces the two Pallas TPU kernels of the JAX package's serving path:
 
 Both launch the dense levels' kernels at C = 64 (`up2.gate_launch`,
 `up2.level_launch`; sources `csrc/gate.cu`, `csrc/up_level.cu`, notes on
-bounds and design there), each with its own launch counter. `up1_tail` is
-four launches: in bfloat16 the transposed conv on `csrc/deconv.cu`'s TMA +
-wgmma GEMM, d2 (with the gate), the pair conv and block1 on
-`csrc/conv3x3.cuh`'s, the head in block1's epilogue (the block's 64
-channels are one 64-column tile, so only the logits are written); in
-float32 on `csrc/dense_conv.cuh`'s `conv_kernel`. bf16 bound: the
-tensor-core work, 0.246 ms at batch 16 and 224^2. They take dense NHWC
+bounds and design there), each with its own launch counter. `up1_gate` is
+two launches: in bfloat16 the conv on `csrc/conv3x3.cuh`'s TMA + wgmma
+GEMM, whose STATS epilogue writes e1 and per-tile sum and max partials, in
+float32 on `csrc/dense_conv.cuh`'s `conv_kernel`; then the partials'
+reduce in tile order (bf16 bound: 0.061 ms at batch 16 and 224^2, set by
+memory by a hair). `up1_tail` is four launches: in bfloat16 the transposed
+conv on `csrc/deconv.cu`'s TMA + wgmma GEMM, d2 (with the gate), the pair
+conv and block1 on `csrc/conv3x3.cuh`'s, the head in block1's epilogue
+(the block's 64 channels are one 64-column tile, so only the logits are
+written); in float32 on `csrc/dense_conv.cuh`'s `conv_kernel`. bf16 bound:
+the tensor-core work, 0.246 ms at batch 16 and 224^2. They take dense NHWC
 tensors, float32 or bfloat16, with C = 64 channels, and accumulate in
 float32. Between stages activations are rounded to the input dtype, and
 biases stay float32, as in the TPU kernels.

@@ -6,7 +6,7 @@ Replaces the JAX package's Pallas kernels of those levels:
     (the gate pass): e1 = relu(conv3x3(x, w) + b), plus the per-image,
     per-channel mean and max of e1 over (H, W) that feed CoordAtt3's 1x1
     squeeze-excite gate. C = 128, 256, 512 at the model's levels. up1's
-    gate pass (`up1.up1_gate`, C = 64) launches the same kernel.
+    gate pass (`up1.up1_gate`, C = 64) launches the same kernels.
   * `up_level` <- `unet_goolenet_tpu/ops/pallas/up2.py:fused_up2` and
     `:fused_up_dense` (one Pallas kernel, `_up2_kernel`):
         up    = convT2x2(x) + b_up
@@ -17,14 +17,21 @@ Replaces the JAX package's Pallas kernels of those levels:
     with a dense (N, H, W, cq) output at every level; `fused_up2`'s packed
     output is a TPU layout. (C, cq) = (128, 64), (256, 128), (512, 256).
 
-Sources: `csrc/gate.cu` on `csrc/dense_conv.cuh`, and `csrc/up_level.cu`
-(notes on bounds, shared memory and launch split there). The level is four
-launches: in bfloat16 the transposed conv on `csrc/deconv.cu`'s TMA + wgmma
-GEMM and its three 3x3 convs on `csrc/conv3x3.cuh`'s (epilogues GATE, PAIR
-over two tensor maps, and AFFINE or the 1x1 head), tiled by
-`conv.level_plan`; in float32 four launches of `dense_conv.cuh`'s FMA
-`conv_kernel`. The bf16 level is bound by its tensor-core work (0.141 ms a
-level at batch 16 at 224^2); a block holds 96 KB of shared memory in the
+Sources: `csrc/gate.cu` and `csrc/up_level.cu` (notes on bounds, shared
+memory and launch split there). The gate pass is two launches: in bfloat16
+`csrc/conv3x3.cuh`'s TMA + wgmma GEMM with its STATS epilogue, which
+writes e1 and one sum and max partial a (M tile, K-split rank), tiled by
+`conv.conv_plan` (`ConvPlan.stats_slots` names the slots); in float32
+`dense_conv.cuh`'s FMA `conv_kernel` in STATS mode, one partial a tile;
+then a small kernel that sums each image's partials in slot order, with no
+float atomics. The level is four launches: in bfloat16 the transposed conv
+on `csrc/deconv.cu`'s TMA + wgmma GEMM and its three 3x3 convs on
+`csrc/conv3x3.cuh`'s (epilogues GATE, PAIR over two tensor maps, and AFFINE
+or the 1x1 head), tiled by `conv.level_plan`; in float32 four launches of
+`dense_conv.cuh`'s FMA `conv_kernel`. The bf16 level is bound by its
+tensor-core work (0.141 ms a level at batch 16 at 224^2), the bf16 gate by
+its tensor-core work at up2-up4 (0.060 ms) and by a hair by memory at up1
+(0.061 ms); a block holds 96 KB of shared memory in the
 transposed conv and 202-214 KB in a 3x3 conv. It stays four launches
 because each conv needs the whole of the stage before over a halo at every
 channel, more than a block's 227 KB at these widths, so each stage waits
@@ -34,7 +41,8 @@ accumulate in float32. Stages are rounded to the input dtype at the TPU
 kernel's points; biases stay float32.
 
 `up_gate_weights` / `up_level_weights` lay the folded weights out once (the
-engine does it in `fold_unet`): a level call launches no weight layout.
+engine does it in `fold_unet`): a gate or level call launches no weight
+layout.
 Each wrapper takes its plain version (`*_ref`) only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises. Each counts its
 calls that launch in `.launches`.
@@ -48,7 +56,7 @@ from unet_goolenet_tpu_torch.ops.conv import conv2d, conv_transpose2x2
 from unet_goolenet_tpu_torch.ops.kernels._common import (
     BLOCK, INT, PTR, KernelWeights, bias, blocked_shape, blocked_taps, check, check_blocks,
     dense_channels, dtype_code, gemm_taps, kernel_weights, launched, lib_fn, round_to, stream)
-from unet_goolenet_tpu_torch.ops.kernels.conv import _sms, level_plan
+from unet_goolenet_tpu_torch.ops.kernels.conv import _sms, conv_plan, level_plan
 
 
 # ------------------------------------------------------------ plain versions
@@ -82,11 +90,23 @@ def up_level_ref(x, e1, gate1p, w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, 
 # ------------------------------------------------------------ kernel wrappers
 
 
+def gate_layout(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
+    """The gate kernel's weights in `dtype`'s layouts: bf16 `gemm_taps` (9,
+    C, C), float32 `blocked_taps`; the bias float32."""
+    return (gemm_taps(w) if dtype == torch.bfloat16 else blocked_taps(w, dtype)), bias(b)
+
+
+def gate_shape(c: int, dtype) -> tuple:
+    """Shape of `gate_layout`'s weight for C channels."""
+    return (9, c, c) if dtype == torch.bfloat16 else blocked_shape(c, c, 3, dtype)
+
+
 def up_gate_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> KernelWeights:
     """Weights of a gate pass (`up_gate_dense`, `up1.up1_gate`) for
-    activations of `dtype`: w (C, C, 3, 3) folded OIHW, b (C,)."""
+    activations of `dtype`: w (C, C, 3, 3) folded OIHW, b (C,); on the CPU
+    as given, on a card as `gate_layout` lays them out."""
     check_blocks(w)
-    return kernel_weights(dtype, (w, b), lambda: (blocked_taps(w, dtype), bias(b)))
+    return kernel_weights(dtype, (w, b), lambda: gate_layout(w, b, dtype))
 
 
 def deconv_as_conv1x1(w_up: torch.Tensor) -> torch.Tensor:
@@ -131,24 +151,30 @@ def level_shapes(c: int, cq: int, dtype) -> tuple:
 
 
 def gate_launch(name: str, x: torch.Tensor, wts: KernelWeights):
-    """One launch of the gate kernel (csrc/gate.cu) on a CUDA tensor x
-    (N, H, W, C): (e1, mean, max). Checks every argument first."""
+    """One call of the gate kernels (csrc/gate.cu: the conv with its
+    statistics' partials, then their reduce) on a CUDA tensor x (N, H, W,
+    C): (e1, mean, max). Checks every argument first."""
     code = dtype_code(name, x)
     n, h, wd, c = x.shape
     dense_channels(name, c)
     dev, dt = x.device, x.dtype
     check("x", x, (n, h, wd, c), dt)
     wk, bk = wts.kernel
-    check("w", wk, blocked_shape(c, c, 3, dt), dt)
+    check("w", wk, gate_shape(c, dt), dt)
     check("b", bk, (c,), torch.float32)
-    tiles = lib_fn("gate_tiles", [INT, INT])(h, wd)
+    plan = None
+    if dt == torch.bfloat16:
+        p = conv_plan(False, n, h, wd, c, c, _sms(dev.index))
+        plan, slots = (INT * 5)(p.R, p.S, p.bn, p.splits, p.clusters), p.stats_slots
+    else:
+        slots = lib_fn("gate_tiles", [INT, INT])(h, wd)
     e1 = torch.empty_like(x)
-    part = torch.empty((2, n, tiles, c), device=dev, dtype=torch.float32)
+    part = torch.empty((2, n, slots, c), device=dev, dtype=torch.float32)
     stats = torch.empty((2, n, c), device=dev, dtype=torch.float32)
-    rc = lib_fn("gate_launch", [INT] + [PTR] * 8 + [INT] * 4 + [PTR])(
+    rc = lib_fn("gate_launch", [INT] + [PTR] * 8 + [INT] * 4 + [PTR] * 2)(
         code, x.data_ptr(), wk.data_ptr(), bk.data_ptr(), e1.data_ptr(),
         part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        n, h, wd, c, stream(x))
+        n, h, wd, c, plan, stream(x))
     launched(name, rc)
     return e1, stats[0], stats[1]
 
