@@ -13,9 +13,9 @@ Phases, one line each (the first failure exits non-zero):
      4x112x112x64; pool_down1: x1 4x224x224x64; up_gate_dense and up_level at
      up2, up3 and up4: (C, cq) = (128, 64) at 112^2, (256, 128) at 56^2,
      (512, 256) at 28^2) in float32 (TF32 off) and bfloat16, and at a ragged
-     level (up1 36x52; the others C = 256 at 20x28); the bf16 gates
-     (up1_gate, up_gate_dense), up1_tail and up_level also against a second
-     call, bit for bit.
+     level (up1 36x52, pool_down1 x1 40x56; the others C = 256 at 20x28);
+     the bf16 gates (up1_gate, up_gate_dense), up1_tail, up_level and
+     pool_down1 also against a second call, bit for bit.
   4. e2e, default configuration: 8 seeded gray PNGs (400x500 and 360x480)
      and two seeded reference-named checkpoints through `apps.infer_e2e.main`,
      bf16 then float32; result.txt must hold 8 grades in [0, 6) and both up1
@@ -37,9 +37,13 @@ Phases, one line each (the first failure exits non-zero):
      gate and level kernels' device time and launches by stage (the gate:
      the conv with its statistics' partials, then their reduce; the level:
      deconv, d2 + gate combine, pair conv, block1 or block1 + head; told
-     apart by kernel name) at up1 and each dense level, from a profiler
-     trace, which must hold one launch a stage (a gate call two in all) and
-     no weight layout; a per-layer split of one bf16
+     apart by kernel name) at up1 and each dense level, and pool_down1's
+     (the pool, the first conv, the second, told apart by launch order),
+     from a profiler trace, which must hold one launch a stage (a gate call
+     two in all, a pool_down1 call three) and no weight layout; the 2x2 max
+     pool at the serving shape x1 16x224x224x64 against its plain version
+     and max_pool2d, device time from one trace, with its bound; a per-layer
+     split of one bf16
      batch-64 call; host time per bf16
      call at batch 16 and 64, and one profiler trace of each, and of one
      all-fused bf16 batch-64 call (device busy vs wall, host syncs, top
@@ -114,6 +118,8 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # float32 kernel path vs plain composition, seg logits as a fraction of the
 # largest |logit|: the same bound as the kernels' own float32 check
 SEG_TOL = 1e-4
+# serving kernels: wrapper -> (source, the TPU kernel it replaces); pool_down1's
+# down1.cu runs, in bf16, pool.cuh's pool and conv3x3.cuh's GEMM twice
 KERNELS = {
     "up1_gate": ("unet_goolenet_tpu_torch/csrc/conv3x3.cuh",
                  "unet_goolenet_tpu/ops/pallas/up1.py:480"),
@@ -777,7 +783,7 @@ LEVEL_STAGES = {"1": "d2_gate", "2": "pair", "0": "block1", "3": "block1_head",
 STATS_KERNEL = "gate_stats_kernel"
 LAYOUT_KERNELS = ("weight_bf16_kernel", "weight_f32_kernel", "dx_weight_kernel")
 # serving kernels whose bf16 call must repeat bit for bit
-REPEATED_SERVING = ("up1_gate", "up1_tail", "up_gate_dense", "up_level")
+REPEATED_SERVING = ("up1_gate", "up1_tail", "up_gate_dense", "up_level", "pool_down1")
 # the ptxas registers of the trainer's conv3x3_gemm instantiations (csrc/conv.cu),
 # which the serving epilogues on the same kernel must not move
 TRAINER_GEMM_REGISTERS = 136
@@ -796,14 +802,51 @@ def level_stage(kernel: str) -> str:
     return "layout" if any(k in kernel for k in LAYOUT_KERNELS) else "other"
 
 
+def stages_by_name(prof, calls: int) -> tuple:
+    """(ms, launches) a call by level_stage, from the trace's sums by kernel
+    name."""
+    ms, count = {}, {}
+    for e in prof.key_averages():
+        if device_us(e) <= 0 or not str(e.device_type).endswith("CUDA"):
+            continue
+        stage = level_stage(e.key)
+        ms[stage] = ms.get(stage, 0.0) + device_us(e) / 1e3 / calls
+        count[stage] = count.get(stage, 0) + e.count / calls
+    return ms, count
+
+
+def down1_stages(prof, calls: int) -> tuple:
+    """(ms, launches) a pool_down1 call by stage, from the trace's device
+    events (those stages_by_name sums) in launch order: a pool launch
+    starts a call, and the first and second conv3x3_gemm launches after it
+    are its two convs (one kernel, so only the order tells them apart)."""
+    events = sorted((e.time_range.start, device_us(e), e.key) for e in prof.events()
+                    if device_us(e) > 0 and str(e.device_type).endswith("CUDA"))
+    us, count, conv = {}, {}, 0
+    for _, dur, name in events:
+        if "pool_kernel<" in name:
+            stage, conv = "pool", 0
+        elif "conv3x3_gemm<" in name:
+            conv += 1
+            stage = f"conv{conv}"
+        else:
+            stage = level_stage(name)
+        us[stage] = us.get(stage, 0.0) + dur
+        count[stage] = count.get(stage, 0) + 1
+    return ({k: v / 1e3 / calls for k, v in us.items()},
+            {k: v / calls for k, v in count.items()})
+
+
 def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
-    """The bf16 gate and level kernels' device time and launches by stage,
-    batch 16, at up1 (the gate as up1_gate, the level with the head as
-    up1_tail) and each dense level (up_gate_dense, up_level), from a
-    profiler trace of `calls` calls: what each of its launches costs. Fails
-    unless each level call launched the deconv and the three convs once
-    each and no weight layout ("other" is the wrapper's cast of the gate),
-    and each gate call the conv and the reduce once each and nothing else.
+    """The bf16 gate, level and pool + down1 kernels' device time and
+    launches by stage, batch 16, at up1 (the gate as up1_gate, the level
+    with the head as up1_tail), each dense level (up_gate_dense, up_level)
+    and down1 (pool_down1 on x1 16x224x224x64), from a profiler trace of
+    `calls` calls: what each of its launches costs. Fails unless each level
+    call launched the deconv and the three convs once each and no weight
+    layout ("other" is the wrapper's cast of the gate), each gate call the
+    conv and the reduce once each and nothing else, and each pool_down1
+    call the pool once and the GEMM twice and nothing else.
     The trace may lose the device events of the first calls after it
     starts, so one call runs in the profiler's warm-up step, whose events
     are dropped, and the `calls` in its recorded step. A trace can still
@@ -816,7 +859,7 @@ def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
     cases = (up1_cases(16, 224, 224, torch.bfloat16, dev, SEED + 7)
              + dense_cases(16, (224, 224), levels, torch.bfloat16, dev, SEED + 7))
     for case in cases:
-        if case.name not in ("up1_gate", "up1_tail", "up_gate_dense", "up_level"):
+        if case.name not in ("up1_gate", "up1_tail", "up_gate_dense", "up_level", "pool_down1"):
             continue
         case.kern()
         torch.cuda.synchronize()
@@ -828,13 +871,8 @@ def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
                         case.kern()
                     torch.cuda.synchronize()
                     prof.step()
-            ms, count = {}, {}
-            for e in prof.key_averages():
-                if device_us(e) <= 0 or not str(e.device_type).endswith("CUDA"):
-                    continue
-                stage = level_stage(e.key)
-                ms[stage] = ms.get(stage, 0.0) + device_us(e) / 1e3 / calls
-                count[stage] = count.get(stage, 0) + e.count / calls
+            ms, count = (down1_stages if case.name == "pool_down1" else stages_by_name)(
+                prof, calls)
             if all(v == round(v) for v in count.values()):
                 break
         if not ms:
@@ -845,6 +883,21 @@ def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
             batch=16, traces=trace, launches_per_call=sum(count.values()),
             **{f"{k}_launches": v for k, v in count.items()}, sum_ms=f"{sum(ms.values()):.4f}",
             **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()})
+        if case.name == "pool_down1":
+            # each stage's bound: x1 16x224x224x64 pools to 112^2, then 64 -> 128 -> 128
+            px, es = 16 * 112 * 112, 2.0
+            bounds = {"pool": bound_of(0.75 * 4 * px * 64, es * 5 * px * 64, torch.bfloat16),
+                      "conv1": bound_of(18.0 * px * 64 * 128,
+                                        es * (px * 192 + 9 * 64 * 128) + 512, torch.bfloat16),
+                      "conv2": bound_of(18.0 * px * 128 * 128,
+                                        es * (px * 256 + 9 * 128 * 128) + 512, torch.bfloat16)}
+            say("timing", what="pool_down1_stage_bounds", shape=repr(case.label),
+                **{f"{k}_bound_ms": f"{b:.4f}" for k, (b, _) in bounds.items()},
+                **{f"{k}_bound_by": by for k, (_, by) in bounds.items()},
+                **{f"{k}_share": f"{b / ms[k]:.3f}" for k, (b, _) in bounds.items() if k in ms})
+            if count != {"pool": 1, "conv1": 1, "conv2": 1}:
+                fail(f"pool_down1: expected the pool once and the GEMM twice, got {count}")
+            continue
         if case.name in ("up1_gate", "up_gate_dense"):
             if count != {"gate_conv": 1, "stats_reduce": 1}:
                 fail(f"{case.name}: expected the conv and the reduce once each, got {count}")
@@ -853,6 +906,32 @@ def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
         if count.get("layout") or any(count.get(k) != 1 for k in ("deconv", "d2_gate", "pair",
                                                                   last)):
             fail(f"{case.name}: expected one launch a stage and no weight layout, got {count}")
+
+
+def time_serving_pool(dev) -> None:
+    """max_pool2x2 at the serving shape, x1 16x224x224x64 (the pool that
+    starts pool_down1), bf16 and float32: device time of the kernel, its
+    plain version and max_pool2d, from one profiler trace, with its bound
+    (x read once, y written once)."""
+    import torch.nn.functional as F
+    from unet_goolenet_tpu_torch.ops.kernels import conv as K
+
+    g = torch.Generator().manual_seed(SEED + 10)
+    xs = {dt: torch.randn(16, 224, 224, 64, generator=g).to(dev, dt)
+          for dt in (torch.bfloat16, torch.float32)}
+    fns = {}
+    for dt, x in xs.items():
+        fns[f"{dname(dt)} kernel"] = partial(K.max_pool2x2, x)
+        fns[f"{dname(dt)} plain"] = partial(K.max_pool2x2_ref, x)
+        fns[f"{dname(dt)} library"] = partial(F.max_pool2d, _nchw(x), 2)
+    ms = trace_device_ms(fns)
+    for dt, x in xs.items():
+        bound, by = bound_of(0.75 * x.numel(), x.element_size() * 1.25 * x.numel(), dt)
+        km = ms[f"{dname(dt)} kernel"]
+        say("timing", what="max_pool2x2_serving", shape=repr("16x224x224x64"), dtype=dname(dt),
+            device_ms=f"{km:.4f}", plain_device_ms=f"{ms[f'{dname(dt)} plain']:.4f}",
+            library_device_ms=f"{ms[f'{dname(dt)} library']:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by=by, share_of_bound=f"{bound / km:.3f}")
 
 
 def phase_timing(dev, errs, launches, train_errs, train_launches) -> list:
@@ -866,6 +945,7 @@ def phase_timing(dev, errs, launches, train_errs, train_launches) -> list:
     time_e2e(dev, unet, gnet)
     agg = time_kernels(dev)
     level_stages(dev)
+    time_serving_pool(dev)
 
     # per-layer split of one bf16 batch-64 call (events between the stages)
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -1417,6 +1497,12 @@ def time_train(dev) -> dict:
                 a["bound_ms"] += w * bound
                 a["ops"] += w * case.flops / PEAK_FLOPS[dtype]
                 a["mem"] += w * case.nbytes / PEAK_BYTES
+    for name in ("max_pool2x2", "max_pool2x2_bwd"):   # the pools' whole pass, beside their bound
+        a = agg[name]
+        say("timing", what=f"{name}_pass", dtype="bfloat16", batch=4, img=224,
+            device_ms=f"{a['ms']:.4f}", bound_ms=f"{a['bound_ms']:.4f}",
+            share_of_bound=f"{a['bound_ms'] / a['ms']:.3f}",
+            library_device_ms=f"{a['library_ms']:.4f}")
     return agg
 
 

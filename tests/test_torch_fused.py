@@ -24,7 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_models import jax_variables, port_models
+from test_torch_models import centred_models, jax_variables
 from unet_goolenet_tpu.models import GoogLeNetClassifier as JGNet
 from unet_goolenet_tpu.models import UNetTaskAligWeight as JUNet
 from unet_goolenet_tpu.ops import pallas as pk
@@ -41,22 +41,6 @@ TOL = dict(rtol=1e-3, atol=1e-3)
 KNOBS = dict(fused_up2=True, fused_up34=True, fused_down1=True)
 
 
-def centre_head(uv, gv, gray):
-    """Rescale the UNet's 1x1 head to a logit spread of ~1.5 and move the
-    threshold into the widest gap between neighbouring logits among the
-    30%..90% quantiles, so that no logit sits next to it."""
-    unet, _ = port_models(uv, gv, img_size=S)
-    with torch.no_grad():
-        lg = engine.unet_forward(engine.fold_unet(unet), preprocess_gray(gray, out_hw=(S, S)))
-    v = np.sort(lg.numpy().ravel())
-    mid = v[int(0.3 * v.size):int(0.9 * v.size)]
-    i = int(np.argmax(np.diff(mid)))
-    k = 1.5 / v.std()
-    outc = uv["params"]["outc"]["conv"]
-    outc["kernel"] = outc["kernel"] * k
-    outc["bias"] = (outc["bias"] - 0.5 * (mid[i] + mid[i + 1])) * k
-
-
 @pytest.fixture(scope="module")
 def fused():
     """Port models, inputs, and the JAX extractor's and pipeline's outputs
@@ -71,8 +55,7 @@ def fused():
     gray = torch.from_numpy(
         np.random.default_rng(23).uniform(0.0, 255.0, (2, 40, 48)).astype(np.float32))
     uv, gv = jax_variables(S, seed=17)
-    centre_head(uv, gv, gray)
-    unet, gnet = port_models(uv, gv, img_size=S)
+    unet, gnet = centred_models(uv, gv, gray)
     imgs = preprocess_gray(gray, out_hw=(S, S))
     juv = jax.tree_util.tree_map(jnp.asarray, uv)
     extract = jax_extractor(JUNet(n_classes=1), juv, S, engine=True, fused=True)

@@ -23,7 +23,7 @@ from unet_goolenet_tpu.pipeline import engine as jengine
 from unet_goolenet_tpu_torch.models import (
     GoogLeNetClassifier, UNetTaskAligWeight, gnet_from_jax, load_reference_state_dict,
     unet_from_jax)
-from unet_goolenet_tpu_torch.pipeline import engine
+from unet_goolenet_tpu_torch.pipeline import engine, preprocess_gray
 from torch_threads import torch_threads  # noqa: F401  (autouse)
 
 pk.interpret_mode(True)
@@ -59,6 +59,27 @@ def port_models(uv, gv, img_size=S):
     gnet = GoogLeNetClassifier(6)
     gnet.load_state_dict(gnet_from_jax(gv))
     return unet.eval(), gnet.eval()
+
+
+def centred_models(uv, gv, gray, img_size=S):
+    """The port's models with the JAX variables' weights, after rescaling
+    the UNet's 1x1 head (in uv too) to a logit spread of ~1.5 and moving
+    the threshold into the widest gap between neighbouring logits among the
+    30%..90% quantiles on the gray batch, so that no logit sits next to it
+    and the masks are neither empty nor full."""
+    unet, gnet = port_models(uv, gv, img_size)
+    with torch.no_grad():
+        lg = engine.unet_forward(engine.fold_unet(unet),
+                                 preprocess_gray(gray, out_hw=(img_size, img_size)))
+    v = np.sort(lg.numpy().ravel())
+    mid = v[int(0.3 * v.size):int(0.9 * v.size)]
+    i = int(np.argmax(np.diff(mid)))
+    k = 1.5 / v.std()
+    outc = uv["params"]["outc"]["conv"]
+    outc["kernel"] = outc["kernel"] * k
+    outc["bias"] = (outc["bias"] - 0.5 * (mid[i] + mid[i + 1])) * k
+    unet.load_state_dict(unet_from_jax(uv))
+    return unet, gnet
 
 
 @pytest.fixture(scope="module")

@@ -19,14 +19,15 @@ import jax
 import jax.numpy as jnp
 from PIL import Image
 
-from test_torch_models import jax_variables, port_models
+from test_torch_models import centred_models, jax_variables
 from unet_goolenet_tpu.data.datasets import _imread as jax_imread
 from unet_goolenet_tpu.models import GoogLeNetClassifier as JGNet
 from unet_goolenet_tpu.models import UNetTaskAligWeight as JUNet
 from unet_goolenet_tpu.ops import pallas as pk
 from unet_goolenet_tpu.pipeline import TwoStagePipeline as JPipeline
 from unet_goolenet_tpu_torch.apps import infer_e2e
-from unet_goolenet_tpu_torch.models import GoogLeNetClassifier, load_reference_state_dict
+from unet_goolenet_tpu_torch.models import (
+    GoogLeNetClassifier, UNetTaskAligWeight, load_reference_state_dict)
 from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline, engine, preprocess_gray
 from unet_goolenet_tpu_torch.train.checkpoint import CheckpointManager
 from unet_goolenet_tpu_torch.train.optim import make_adamw
@@ -40,24 +41,18 @@ TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 @pytest.fixture(scope="module")
-def pipes():
+def models():
+    """Seeded JAX variables and the port's models with their weights, the
+    UNet head rescaled on the test gray batch; shared by the pipeline and
+    CLI tests."""
     gray = np.random.default_rng(21).uniform(0.0, 255.0, (2, 40, 48)).astype(np.float32)
     uv, gv = jax_variables(S, seed=11)
-    unet, _ = port_models(uv, gv)
-    with torch.no_grad():
-        lg = engine.unet_forward(engine.fold_unet(unet),
-                                 preprocess_gray(torch.from_numpy(gray), out_hw=(S, S)))
-    # rescale the 1x1 head to a logit spread of ~1.5 and move the threshold to
-    # the middle of the widest gap between neighbouring logits among the
-    # 30%..90% quantiles, so no logit sits next to it
-    v = np.sort(lg.numpy().ravel())
-    mid = v[int(0.3 * v.size):int(0.9 * v.size)]
-    i = int(np.argmax(np.diff(mid)))
-    k = 1.5 / v.std()
-    outc = uv["params"]["outc"]["conv"]
-    outc["kernel"] = outc["kernel"] * k
-    outc["bias"] = (outc["bias"] - 0.5 * (mid[i] + mid[i + 1])) * k
-    unet, gnet = port_models(uv, gv)
+    return (gray, uv, gv, *centred_models(uv, gv, torch.from_numpy(gray)))
+
+
+@pytest.fixture(scope="module")
+def pipes(models):
+    gray, uv, gv, unet, gnet = models
     jpipe = JPipeline(JUNet(n_classes=1), jax.tree_util.tree_map(jnp.asarray, uv),
                       JGNet(num_classes=6), jax.tree_util.tree_map(jnp.asarray, gv),
                       img_size=S, fused_up1=True, dense_fused_up1=True, dense_batch_min=1)
@@ -134,13 +129,13 @@ def write_fixture(tmp_path, pipe_models):
     return img_dir, snapshot, gnet4.eval()
 
 
-def test_infer_e2e_cli_writes_result(tmp_path):
+def test_infer_e2e_cli_writes_result(tmp_path, models):
     """The CLI grades every image as the pipeline does, from the port
     trainer's own UNet snapshot and a 4-class classifier (--num-classes),
     with each image (gray, RGB PNG, JPEG) read exactly as the JAX app reads
-    it; a bare state dict loads like the wrapped ones."""
-    uv, gv = jax_variables(S, seed=13)
-    unet, gnet = port_models(uv, gv)
+    it; a bare state dict loads like the wrapped ones. The models are the
+    pipeline tests' (written to checkpoints, so the CLI builds its own)."""
+    unet, gnet = models[-2:]
     img_dir, snapshot, gnet4 = write_fixture(tmp_path, (unet, gnet))
     out = infer_e2e.main(["--device", "cpu", "--image-dir", str(img_dir),
                           "--unet-checkpoint", snapshot,
@@ -174,6 +169,6 @@ def test_pipeline_defaults_to_cuda():
     without one, the default device raises instead of falling back."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
-    unet, gnet = port_models(*jax_variables(S, seed=11))
+    unet, gnet = UNetTaskAligWeight(1, img_size=S).eval(), GoogLeNetClassifier(6).eval()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TwoStagePipeline(unet, gnet, img_size=S)

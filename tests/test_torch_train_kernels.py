@@ -253,6 +253,29 @@ LEVELS = tuple((n, h, h, c, c // 2 if c > 64 else c) for n in (16, 64)
     (2, 16, 32, 128, 64), (2, 16, 28, 512, 256))
 
 
+def assert_plan_covers(p, n, h, w, cin, cout):
+    """p is conv_plan's forward plan for cin -> cout at n x h x w: its tiles
+    hold every output pixel of every image once and every output channel,
+    its K splits take every K tile once, and its grid is one wave."""
+    assert p == K.conv_plan(False, n, h, w, cin, cout, SMS)
+    assert (p.cols, p.kc) == (cout, cin) and p.R * (p.S + 2) <= p.bm
+    per_image = p.rtiles * p.ctiles
+    assert p.mtiles == n * per_image
+    pixels = np.concatenate([p.pixels(mt) for mt in range(per_image)])
+    np.testing.assert_array_equal(np.bincount(pixels, minlength=h * w), 1)
+    last = (n - 1) * per_image   # the last image's tiles are the first's, shifted
+    assert p.pixels(last) == [px + (n - 1) * h * w for px in p.pixels(0)]
+    assert p.ntiles * p.bn == cout
+    taken = Counter()
+    for rank, cid, tiles, k0, count in p.blocks():
+        taken.update(tiles)
+        assert k0 == rank * p.kper and count >= 1
+    assert sorted(taken) == list(range(p.tiles)) and set(taken.values()) == {p.splits}
+    ks = [k for rank in range(p.splits)
+          for k in range(rank * p.kper, min(p.ktiles, (rank + 1) * p.kper))]
+    assert ks == list(range(p.ktiles)) and p.kper % 9 == 0 and p.grid <= SMS
+
+
 @pytest.mark.parametrize("n,h,w,c,cq", LEVELS)
 def test_level_plan_covers_every_output_once(n, h, w, c, cq):
     """Each of a decoder level's three conv launches (d2, the pair conv,
@@ -263,23 +286,7 @@ def test_level_plan_covers_every_output_once(n, h, w, c, cq):
     tiles are 64 columns, one pixel's channels a tile."""
     plan = K.level_plan(n, h, w, c, cq, SMS)
     for p, cin, cout in ((plan.d2, c, c), (plan.pair, 2 * c, cq), (plan.blk1, cq, cq)):
-        assert p == K.conv_plan(False, n, h, w, cin, cout, SMS)
-        assert (p.cols, p.kc) == (cout, cin) and p.R * (p.S + 2) <= p.bm
-        per_image = p.rtiles * p.ctiles
-        assert p.mtiles == n * per_image
-        pixels = np.concatenate([p.pixels(mt) for mt in range(per_image)])
-        np.testing.assert_array_equal(np.bincount(pixels, minlength=h * w), 1)
-        last = (n - 1) * per_image   # the last image's tiles are the first's, shifted
-        assert p.pixels(last) == [px + (n - 1) * h * w for px in p.pixels(0)]
-        assert p.ntiles * p.bn == cout
-        taken = Counter()
-        for rank, cid, tiles, k0, count in p.blocks():
-            taken.update(tiles)
-            assert k0 == rank * p.kper and count >= 1
-        assert sorted(taken) == list(range(p.tiles)) and set(taken.values()) == {p.splits}
-        ks = [k for rank in range(p.splits)
-              for k in range(rank * p.kper, min(p.ktiles, (rank + 1) * p.kper))]
-        assert ks == list(range(p.ktiles)) and p.kper % 9 == 0 and p.grid <= SMS
+        assert_plan_covers(p, n, h, w, cin, cout)
     assert plan.pair_slabs == tuple([("up", 64 * s) for s in range(c // 64)]
                                     + [("gated", 64 * s) for s in range(c // 64)])
     assert len(plan.pair_slabs) * 9 == plan.pair.ktiles
@@ -525,6 +532,36 @@ def test_pool_kernels_match_plain_with_ties(cuda, dtype):
     gy = torch.randn(2, 10, 14, 64, generator=g).to(cuda, dtype)
     assert torch.equal(counted(K.max_pool2x2, x), K.max_pool2x2_ref(x))
     assert torch.equal(counted(K.max_pool2x2_bwd, x, gy), K.max_pool2x2_bwd_ref(x, gy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_pool_forward_matches_plain_with_ties_and_nans(cuda, dtype, c):
+    """The streaming forward at the UNet's four pool widths on a ragged
+    level: integers in [-2, 2] (ties in most windows, signed zeros among
+    them) and 1% NaNs. The kernel copies the first maximum of each window,
+    NaN first, as max_pool2d picks it: the same values, the same signs of
+    zero, NaN where max_pool2d gives NaN."""
+    g = torch.Generator().manual_seed(10)
+    x = torch.randint(-2, 3, (2, 10, 14, c), generator=g).float()
+    x = torch.where(torch.rand(x.shape, generator=g) < 0.5, x, x * -1.0)   # -0.0 among the 0s
+    x[torch.rand(x.shape, generator=g) < 0.01] = float("nan")
+    x = x.to(cuda, dtype)
+    got, ref = counted(K.max_pool2x2, x), K.max_pool2x2_ref(x)
+    assert torch.equal(got.isnan(), ref.isnan()) and got.isnan().any()
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+    assert torch.equal(got.signbit(), ref.signbit())
+
+
+@pytest.mark.cuda
+def test_pool_forward_takes_sixteen_bytes_of_channels(cuda):
+    """A thread takes 16 bytes of channels: bf16 C must be a multiple of 8
+    (float32 of 4), or the wrapper raises before launching."""
+    x = torch.zeros(1, 4, 6, 12, device=cuda)
+    assert counted(K.max_pool2x2, x).shape == (1, 2, 3, 12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.max_pool2x2(x.to(torch.bfloat16))
 
 
 @pytest.mark.cuda

@@ -1,28 +1,26 @@
-// One implicit-GEMM convolution kernel for pool + down1 (down1.cu), and in
-// float32 for the gate passes, the decoder levels and the training
-// convolutions (gate.cu, up_level.cu, conv.cu; their bf16 runs on
-// conv3x3.cuh and deconv.cu), where channel counts run from 3 to 1024 and
-// neither the weights nor an intermediate of a whole level fit in a block's
-// shared memory. DECONV, GATE and HEAD serve only the float32 level now,
-// STATS only the float32 gate pass.
+// One implicit-GEMM convolution kernel, float32 only, for the float32 pool +
+// down1, gate passes, decoder levels and training convolutions (down1.cu,
+// gate.cu, up_level.cu, conv.cu; their bf16 runs on conv3x3.cuh, deconv.cu
+// and pool.cuh), where channel counts run from 3 to 1024 and neither the
+// weights nor an intermediate of a whole level fit in a block's shared
+// memory.
 //
-// conv_kernel<T, K, SRC, MODE> computes, for one 8x16-pixel output tile of
-// one image and one block of 64 output channels (grid: tiles x cout/64 x N),
+// conv_kernel<T, K, SRC, MODE> (T = float) computes, for one 8x16-pixel
+// output tile of one image and one block of 64 output channels (grid: tiles
+// x cout/64 x N),
 //     acc = sum over 64-channel input slabs of convKxK(slab, w) (pad K/2)
 // and then an epilogue chosen by MODE:
 //     RELU    out = relu(acc + b)
 //     STATS   out = relu(acc + b), plus the tile's per-channel sum and max
-//             of the float32 values before rounding (the gate pass)
-//     GATE    d2 = round(relu(acc + b)); out = e1 + round(g1p * d2)
+//             of the values (the gate pass)
+//     GATE    d2 = relu(acc + b); out = e1 + g1p * d2
 //     DECONV  (K = 1) out[2y+di, 2x+dj] = acc + b: the 2x2/s2 transposed
 //             conv as a 1x1 conv with 4*cout outputs ordered (di, dj, co)
-//     HEAD    (cout = 64) y = round(relu(acc + b)); out = y @ wout + bout:
-//             a 1x1 head with ncls outputs, so that only the logits reach
-//             device memory
+//     HEAD    (cout = 64) y = relu(acc + b); out = y @ wout + bout: a 1x1
+//             head with ncls outputs, so that only the logits reach device
+//             memory
 //     AFFINE  out = acc * scale + b, then relu if a.relu: the fused conv +
 //             BatchNorm epilogue of conv.cu; scale and b may be null (1, 0)
-// Every stored value is rounded to T, as the TPU kernels round them; the
-// arithmetic is float32.
 //
 // Input slabs (SRC): DENSE reads channel ci < c0 from src0 (c0 channels per
 // pixel) and the rest from src1, so a conv over concat[up, gated] reads both
@@ -36,14 +34,12 @@
 //
 // Per slab the (8+K-1) x (16+K-1) x 64 input halo is staged into shared
 // memory with zeros outside the image (16-byte cp.async copies, or through
-// registers for POOL and a ragged slab), then Conv<T, 128> (conv_common.cuh)
-// accumulates: bf16 on mma.sync.m16n8k16 with ldmatrix fragments and all K*K
-// taps of the 64 x 64 weight block staged at once, float32 on FMA one tap at
-// a time. The epilogue goes through a float32 tile in shared memory (over the
-// dead halo tile for float, over the dead weight staging for bf16), so that
-// each warp writes whole 64-channel pixel rows. Weights arrive per output
-// block, [block][tap][64 co][cin] for bf16 and [block][tap][cin][64 co] for
-// float. Shared memory: 110 KB (bf16) / 65 KB (float).
+// registers for POOL and a ragged slab), then Conv<float, 128>
+// (conv_common.cuh) accumulates on FMA, one tap of the 64 x 64 weight block
+// at a time. The epilogue goes through a float32 tile in shared memory over
+// the dead halo tile, so that each warp writes whole 64-channel pixel rows.
+// Weights arrive per output block, [block][tap][cin][64 co]. Shared memory:
+// 65 KB.
 #pragma once
 
 #include "conv_common.cuh"
@@ -84,14 +80,8 @@ constexpr size_t conv_smem() {
              ((size_t)(TH + 2) * (TW + 2) * Traits<T>::PITCH + Traits<T>::WS) +
          sizeof(float) * 2 * WARPS * C;
 }
-template <typename T>
-constexpr bool tile_fits() {   // the float epilogue tile fits where it is put
-  return sizeof(float) * TR * YT_PITCH <=
-         sizeof(typename Traits<T>::S) *
-             (sizeof(T) == 4 ? (size_t)(TH + 2) * (TW + 2) * Traits<T>::PITCH
-                             : (size_t)Traits<T>::WS);
-}
-static_assert(tile_fits<float>() && tile_fits<__nv_bfloat16>(), "epilogue tile does not fit");
+static_assert(sizeof(float) * TR * YT_PITCH <= sizeof(float) * (TH + 2) * (TW + 2) * C,
+              "the epilogue tile does not fit over the halo tile");
 
 __device__ __forceinline__ float4 max4(float4 a, float4 b) {
   return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), fmaxf(a.w, b.w));
@@ -130,6 +120,7 @@ __device__ __forceinline__ void stage_slab(typename Traits<T>::S* xin, const T* 
 
 template <typename T, int K, int SRC, int MODE>
 __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
+  static_assert(sizeof(T) == 4, "conv_kernel is float32 only: bf16 runs on conv3x3.cuh");
   using S = typename Traits<T>::S;
   constexpr int PITCH = Traits<T>::PITCH;
   constexpr int HALO = K / 2, IR = TH + 2 * HALO, IC = TW + 2 * HALO;
@@ -138,7 +129,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv_kernel(const ConvArgs a) {
   S* ws = xin + (TH + 2) * (TW + 2) * PITCH;
   float* red_sum = reinterpret_cast<float*>(ws + Traits<T>::WS);
   float* red_max = red_sum + WARPS * C;
-  float* yt = reinterpret_cast<float*>(sizeof(T) == 4 ? (void*)xin : (void*)ws);
+  float* yt = xin;   // the epilogue tile, over the dead halo tile
 
   const int tile = blockIdx.x, nb = blockIdx.y, n = blockIdx.z;
   const int H = a.H, W = a.W;

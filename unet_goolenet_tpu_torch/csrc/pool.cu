@@ -9,14 +9,16 @@
 // _pool_kernel; its backward _pool_bwd is plain jnp with the same
 // first-maximum rule, here a kernel too).
 //
-// One thread per output pixel and 4 channels (16-byte float / 8-byte bf16
-// loads of each window row), grid-stride; H and W of x even, C a multiple of
-// 4. Bound on an H100: memory, x read and y written once (1.25 x |x|), or
-// x and dy read and dx written (2.25 x |x|): at 224^2 x 64 and batch 4 in
-// bf16, ~0.010 and ~0.018 ms.
+// The forward is pool.cuh's streaming kernel (design and bound there), which
+// pool_down1 (down1.cu) launches too. The backward: one thread per output
+// pixel and 4 channels (16-byte float / 8-byte bf16 loads of each window
+// row), grid-stride; H and W of x even, C a multiple of 4. Bound on an
+// H100: memory, x and dy read and dx written (2.25 x |x|): at 224^2 x 64 and
+// batch 4 in bf16, ~0.018 ms.
 #include <math.h>
 
 #include "conv_common.cuh"
+#include "pool.cuh"
 
 namespace {
 
@@ -42,27 +44,6 @@ __device__ __forceinline__ int first_max(const float (&v)[4]) {
   for (int j = 1; j < 4; ++j)
     if (v[j] > v[k] || (isnan(v[j]) && !isnan(v[k]))) k = j;
   return k;
-}
-
-template <typename T>
-__global__ void pool_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int H, int W,
-                            int C) {
-  const size_t total = (size_t)N * H * W * (C / 4);
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    size_t opix;
-    int q;
-    const T* p = window(x, i, H, W, C, opix, q);
-    const size_t rs = (size_t)2 * W * C;
-    float v[4][4], o[4];
-    comps(load4(p), v[0]); comps(load4(p + C), v[1]);
-    comps(load4(p + rs), v[2]); comps(load4(p + rs + C), v[3]);
-    for (int c = 0; c < 4; ++c) {
-      const float w4[4] = {v[0][c], v[1][c], v[2][c], v[3][c]};
-      o[c] = w4[first_max(w4)];
-    }
-    store4(y + opix * C + 4 * q, make_float4(o[0], o[1], o[2], o[3]));
-  }
 }
 
 template <typename T>
@@ -96,28 +77,24 @@ int grid_for(size_t total) {
 }
 
 template <typename T>
-cudaError_t launch_pool(const void* x, const void* gy, void* out, int N, int H, int W, int C,
-                        bool bwd, cudaStream_t s) {
+cudaError_t launch_pool_bwd(const void* x, const void* gy, void* gx, int N, int H, int W, int C,
+                            cudaStream_t s) {
   if (C % 4) return cudaErrorInvalidValue;
-  const int blocks = grid_for((size_t)N * H * W * (C / 4));
-  if (bwd)
-    pool_bwd_kernel<T><<<blocks, 256, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(gy),
-                                              static_cast<T*>(out), N, H, W, C);
-  else
-    pool_kernel<T><<<blocks, 256, 0, s>>>(static_cast<const T*>(x), static_cast<T*>(out), N, H,
-                                          W, C);
+  pool_bwd_kernel<T><<<grid_for((size_t)N * H * W * (C / 4)), 256, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gy), static_cast<T*>(gx), N, H, W, C);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. H, W: the output size; x (N, 2H, 2W,
-// C), y (N, H, W, C). Returns a cudaError_t (0 on success).
+// C), y (N, H, W, C), C a multiple of 4 (float32) or 8 (bf16), both 16-byte
+// aligned. Returns a cudaError_t (0 on success).
 extern "C" int pool_launch(int dtype, const void* x, void* y, int N, int H, int W, int C,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_pool<float>(x, nullptr, y, N, H, W, C, false, s);
-  if (dtype == 1) return launch_pool<__nv_bfloat16>(x, nullptr, y, N, H, W, C, false, s);
+  if (dtype == 0) return pool::launch_pool_fwd<float>(x, y, N, H, W, C, s);
+  if (dtype == 1) return pool::launch_pool_fwd<__nv_bfloat16>(x, y, N, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -125,7 +102,7 @@ extern "C" int pool_launch(int dtype, const void* x, void* y, int N, int H, int 
 extern "C" int pool_bwd_launch(int dtype, const void* x, const void* gy, void* gx, int N, int H,
                                int W, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_pool<float>(x, gy, gx, N, H, W, C, true, s);
-  if (dtype == 1) return launch_pool<__nv_bfloat16>(x, gy, gx, N, H, W, C, true, s);
+  if (dtype == 0) return launch_pool_bwd<float>(x, gy, gx, N, H, W, C, s);
+  if (dtype == 1) return launch_pool_bwd<__nv_bfloat16>(x, gy, gx, N, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }

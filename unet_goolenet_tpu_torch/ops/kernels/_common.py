@@ -75,16 +75,14 @@ def check_blocks(*ws: torch.Tensor) -> None:
                              f"got {w.shape[0]}")
 
 
-def blocked_taps(w: torch.Tensor, dtype) -> torch.Tensor:
-    """OIHW (Co, Ci, k, k), Co a multiple of 64 -> per-tap blocks of 64
-    output channels in `dtype`: (Co/64, k*k, 64, Ci) for bf16 (the
-    tensor-core B operand), (Co/64, k*k, Ci, 64) for float32 (FMA), the
-    layout of csrc/dense_conv.cuh. One permute and copy, since the trainer
-    lays its weights out at every call."""
+def blocked_taps(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Co, Ci, k, k), Co a multiple of 64 -> float32 per-tap blocks of
+    64 output channels, (Co/64, k*k, Ci, 64): the FMA layout of
+    csrc/dense_conv.cuh (float32 only; bf16 runs on `gemm_taps`)."""
     check_blocks(w)
     co, ci, kh, kw = w.shape
-    v = w.to(dtype).reshape(co // BLOCK, BLOCK, ci, kh * kw)
-    return (v.permute(0, 3, 1, 2) if dtype == torch.bfloat16 else v.permute(0, 3, 2, 1)).contiguous()
+    v = w.detach().float().reshape(co // BLOCK, BLOCK, ci, kh * kw)
+    return v.permute(0, 3, 2, 1).contiguous()
 
 
 def gemm_taps(w: torch.Tensor) -> torch.Tensor:
@@ -96,10 +94,8 @@ def gemm_taps(w: torch.Tensor) -> torch.Tensor:
     return w.detach().to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, co, ci).contiguous()
 
 
-def blocked_shape(co: int, ci: int, k: int, dtype) -> tuple:
+def blocked_shape(co: int, ci: int, k: int) -> tuple:
     """Shape of `blocked_taps` of a (co, ci, k, k) weight."""
-    if dtype == torch.bfloat16:
-        return (co // BLOCK, k * k, BLOCK, ci)
     return (co // BLOCK, k * k, ci, BLOCK)
 
 

@@ -21,7 +21,8 @@ Replaces the JAX package's Pallas kernels in
 Sources: `csrc/conv.cu` (bf16 forward and dx on `csrc/conv3x3.cuh`'s TMA +
 wgmma GEMM, float32 on `csrc/dense_conv.cuh`), `csrc/deconv.cu` (its own
 TMA + wgmma GEMM; dW/db on `csrc/conv_dw.cuh`), `csrc/conv_dw.cuh` and
-`csrc/pool.cu`; bounds and design notes there. The conv's tiles and K split
+`csrc/pool.cu` (the forward on `csrc/pool.cuh`'s streaming kernel); bounds
+and design notes there. The conv's tiles and K split
 (`conv_plan`; a decoder level's three, `level_plan`), the weight
 gradients' split (`wgrad_plan`) and the transposed conv's tiles
 (`deconv_plan`) are planned here, in plain Python that the CPU tests reach.
@@ -270,6 +271,10 @@ class ConvPlan(NamedTuple):
     def grid(self) -> int:
         return self.clusters * self.splits
 
+    def ints(self) -> Tuple[int, ...]:
+        """(R, S, bn, splits, clusters), as the kernel's launch takes them."""
+        return self.R, self.S, self.bn, self.splits, self.clusters
+
     def _tile(self, mt: int):
         """Output pixel po = row * S + column of M tile mt, for each po < R
         S, as image * h * w + row * w + column, or None past the image."""
@@ -389,9 +394,8 @@ class LevelPlan(NamedTuple):
     pair_slabs: Tuple[Tuple[str, int], ...]
 
     def ints(self) -> Tuple[int, ...]:
-        """(R, S, bn, splits, clusters) of each launch, as the kernel takes
-        them."""
-        return tuple(v for p in self[:3] for v in (p.R, p.S, p.bn, p.splits, p.clusters))
+        """`ConvPlan.ints` of each launch, as the kernel takes them."""
+        return tuple(v for p in self[:3] for v in p.ints())
 
 
 @functools.lru_cache(maxsize=None)
@@ -837,21 +841,25 @@ def deconv2x2_dwdb(x: torch.Tensor, g: torch.Tensor):
     return out[:-cout].view(cin, cout, 2, 2), out[-cout:]
 
 
-def _pool_check(name, x):
+def _pool_check(name, x, lanes: int = 4):
+    """(n, H, W, C) of the output of a pool kernel's x (N, 2H, 2W, C): H and
+    W of x even, C a multiple of `lanes` (the channels a thread takes)."""
     n, h2, w2, c = x.shape
-    if h2 % 2 or w2 % 2 or c % 4:
+    if h2 % 2 or w2 % 2 or c % lanes:
         raise ValueError(f"{name}: x's height and width must be even and its channels a "
-                         f"multiple of 4, got {tuple(x.shape)}")
+                         f"multiple of {lanes}, got {tuple(x.shape)}")
     check("x", x, (n, h2, w2, c), x.dtype)
     return n, h2 // 2, w2 // 2, c
 
 
 def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 / stride-2 max pool of x (N, 2H, 2W, C): (N, H, W, C)."""
+    """2x2 / stride-2 max pool of x (N, 2H, 2W, C): (N, H, W, C). The kernel
+    takes 16 bytes of channels a thread: C a multiple of 4 in float32, of 8
+    in bfloat16."""
     if x.device.type == "cpu":
         return max_pool2x2_ref(x)
     code = dtype_code("max_pool2x2", x)
-    n, h, wd, c = _pool_check("max_pool2x2", x)
+    n, h, wd, c = _pool_check("max_pool2x2", x, 16 // x.element_size())
     out = torch.empty((n, h, wd, c), device=x.device, dtype=x.dtype)
     rc = lib_fn("pool_launch", [INT, PTR, PTR] + [INT] * 4 + [PTR])(
         code, x.data_ptr(), out.data_ptr(), n, h, wd, c, stream(x))

@@ -93,12 +93,12 @@ def up_level_ref(x, e1, gate1p, w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, 
 def gate_layout(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype):
     """The gate kernel's weights in `dtype`'s layouts: bf16 `gemm_taps` (9,
     C, C), float32 `blocked_taps`; the bias float32."""
-    return (gemm_taps(w) if dtype == torch.bfloat16 else blocked_taps(w, dtype)), bias(b)
+    return (gemm_taps(w) if dtype == torch.bfloat16 else blocked_taps(w)), bias(b)
 
 
 def gate_shape(c: int, dtype) -> tuple:
     """Shape of `gate_layout`'s weight for C channels."""
-    return (9, c, c) if dtype == torch.bfloat16 else blocked_shape(c, c, 3, dtype)
+    return (9, c, c) if dtype == torch.bfloat16 else blocked_shape(c, c, 3)
 
 
 def up_gate_weights(w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> KernelWeights:
@@ -126,8 +126,8 @@ def level_layout(w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1, dtype: 
         convs = (gemm_taps(w_d2), gemm_taps(w_pair), gemm_taps(w_blk1))
         wup = w_up.detach().float().contiguous()
     else:
-        convs = tuple(blocked_taps(w, dtype) for w in (w_d2, w_pair, w_blk1))
-        wup = blocked_taps(deconv_as_conv1x1(w_up), dtype)
+        convs = tuple(blocked_taps(w) for w in (w_d2, w_pair, w_blk1))
+        wup = blocked_taps(deconv_as_conv1x1(w_up))
     return (wup, bias(b_up), convs[0], bias(b_d2), convs[1], bias(b_pair), convs[2],
             bias(b_blk1))
 
@@ -146,7 +146,7 @@ def level_shapes(c: int, cq: int, dtype) -> tuple:
     if dtype == torch.bfloat16:
         return (((c, c, 2, 2), torch.float32), ((9, c, c), dtype), ((9, cq, 2 * c), dtype),
                 ((9, cq, cq), dtype))
-    return tuple((blocked_shape(co, ci, k, dtype), dtype)
+    return tuple((blocked_shape(co, ci, k), dtype)
                  for co, ci, k in ((4 * c, c, 1), (c, c, 3), (cq, 2 * c, 3), (cq, cq, 3)))
 
 
@@ -165,7 +165,7 @@ def gate_launch(name: str, x: torch.Tensor, wts: KernelWeights):
     plan = None
     if dt == torch.bfloat16:
         p = conv_plan(False, n, h, wd, c, c, _sms(dev.index))
-        plan, slots = (INT * 5)(p.R, p.S, p.bn, p.splits, p.clusters), p.stats_slots
+        plan, slots = (INT * 5)(*p.ints()), p.stats_slots
     else:
         slots = lib_fn("gate_tiles", [INT, INT])(h, wd)
     e1 = torch.empty_like(x)
