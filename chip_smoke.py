@@ -17,9 +17,14 @@ Phases, one line each (the first failure exits non-zero):
      the bf16 gates (up1_gate, up_gate_dense), up1_tail, up_level and
      pool_down1 also against a second call, bit for bit.
   4. e2e, default configuration: 8 seeded gray PNGs (400x500 and 360x480)
-     and two seeded reference-named checkpoints through `apps.infer_e2e.main`,
-     bf16 then float32; result.txt must hold 8 grades in [0, 6) and both up1
-     kernels must have launched. Then, in float32, the pipeline (kernel path)
+     and two seeded reference-named checkpoints through `apps.infer_e2e.main`
+     in bf16 by its three routes (E2E_ROUTES: host preprocessing, the
+     default; --device-preprocess; --device-preprocess --size-buckets 2),
+     with the classifier's logits centred and scaled on the 8 images;
+     each result.txt must hold 8 grades in [0, 6), both up1 kernels must
+     have launched in each run (counters set to 0 before it), and the host
+     route's grades must be those of TwoStagePipeline.infer_from_rgb on the
+     same ImageFolderDataset batches. Then, in float32, the pipeline (kernel path)
      against the plain composition (engine.unet_trunk + engine.up1_plain) on
      4 images, with the classifier's fc bias centred on them so that they get
      at least 2 distinct grades: equal grades, seg logits within SEG_TOL of
@@ -29,6 +34,27 @@ Phases, one line each (the first failure exits non-zero):
      TwoStagePipeline against the plain composition, then one bf16 batch-16
      call of apps.train_cls.make_roi_extractor(fused=True); all five
      kernels' counters, set to 0 just before, must be > 0.
+  5b. predict_seg: the 8 PNGs through `apps.predict_seg.main` (float32): 8
+     red-on-black 224x224 PNGs whose masks equal TwoStagePipeline.infer_masks
+     of the same ImageFolderDataset(wavelet=False) images, but where the seg
+     logit is within 1e-3 of the threshold (the seg head is centred on the
+     images' median logit); both up1 kernels launched.
+  5c. serve --live: a GradingServer from `apps.serve.build_server` (raw_hw
+     400x500, max_batch 16), warmed (the buckets printed), then 8 client
+     threads posting one- and three-image .npy bodies, 64 seeded images in
+     all: every grade equal to a direct infer_grades of the batch the server
+     put its image in (the device batches recorded as formed), and in
+     float32 to one of all 64 images at batch 64 (images whose top two
+     classifier logits lie within 1e-3 left out and counted; bf16 rounds
+     otherwise at another batch size), /healthz's batch histogram of powers
+     of two <= 16,
+     both up1 kernels launched; float32, then bf16 with the dispatcher's
+     overlap on and off, all warmed by GradingServer.warmup (on the
+     dispatcher thread), then bf16 with overlap on warmed by calls on this
+     thread instead, which shows what the dispatcher's first call costs
+     when its own thread was not warmed. Each prints images/s,
+     per-call p50/p99 ms, the first call's ms and the histogram beside the
+     card's name and power limit.
   6. timing (CUDA events, after warm-up): infer_grades images/s at batch 16
      and 64 in bf16 and float32 (median of 7 rounds), the default, all-fused
      and up2 + down1 configurations in turns (forwards, then backwards);
@@ -136,6 +162,11 @@ FUSED = dict(fused_up2=True, fused_up34=True, fused_down1=True)
 # the configurations timed end to end: the default, all-fused, and the levels
 # whose kernels beat the default path alone (up2, pool + down1)
 CONFIGS = {"default": {}, "fused": FUSED, "up2_down1": dict(fused_up2=True, fused_down1=True)}
+# infer_e2e's routes (phase 4), each in bf16 on the 8 PNGs
+E2E_ROUTES = {"host": [], "device": ["--device-preprocess"],
+              "buckets": ["--device-preprocess", "--size-buckets", "2"]}
+# serve --live: concurrent clients and images in all (phase 5c)
+SERVE_CLIENTS, SERVE_IMAGES = 8, 64
 # the decoder levels up2, up3, up4 at 224^2: (output size, C, cq)
 LEVELS = ((112, 128, 64), (56, 256, 128), (28, 512, 256))
 # kernels 6-9 of the training path: wrapper -> (source, the TPU kernel it replaces)
@@ -617,31 +648,80 @@ def phase_kernels(dev) -> dict:
     return errs
 
 
-def phase_e2e(dev) -> dict:
-    """The default configuration through infer_e2e, then the all-fused one;
-    returns each kernel's launches on its path."""
+def up1_launched(what: str) -> dict:
+    """The up1 kernels' launches since the last reset_counts(); fails unless
+    both launched and no training kernel did."""
+    counts = read_counts()
+    launches = {k: v for k, v in counts.items() if k.startswith("up1_")}
+    if any(v for k, v in counts.items() if k in TRAIN_KERNELS):
+        fail(f"{what} launched a training kernel")
+    if min(launches.values()) == 0:
+        fail(f"{what}: a kernel of the main path never launched: {launches}")
+    return launches
+
+
+def centred_classifier(gnet_pt: str, logits: torch.Tensor, name: str) -> str:
+    """gnet_pt's classifier with its logits centred on the images that gave
+    `logits` (as check_kernel_path does) and scaled to unit spread, so that
+    those images do not all get one grade and few lie near a tie; saved as
+    WORK/name."""
+    sd = torch.load(gnet_pt, weights_only=True)["net"]
+    logits = logits.float().cpu()
+    k = 1.0 / logits.std(dim=0).clamp_min(1e-12)
+    sd["googlenet.fc.weight"] = sd["googlenet.fc.weight"] * k[:, None]
+    sd["googlenet.fc.bias"] = (sd["googlenet.fc.bias"] - logits.mean(dim=0)) * k
+    path = os.path.join(WORK, name)
+    torch.save({"net": sd}, path)
+    return path
+
+
+def phase_e2e(dev) -> tuple:
+    """The default configuration through infer_e2e's three routes, then the
+    all-fused one; returns each kernel's launches on its path and the
+    fixture (images, checkpoints)."""
     from unet_goolenet_tpu_torch.apps import infer_e2e
+    from unet_goolenet_tpu_torch.apps.common import load_two_stage
+    from unet_goolenet_tpu_torch.data import DataLoader, ImageFolderDataset
     from unet_goolenet_tpu_torch.models import (
         GoogLeNetClassifier, UNetTaskAligWeight, load_reference_state_dict)
 
-    img_dir, (unet_pt, gnet_pt) = write_fixture((UNetTaskAligWeight(1), GoogLeNetClassifier(6)))
-    reset_counts()
-    for flags in (["--bf16"], []):
+    fixture = write_fixture((UNetTaskAligWeight(1), GoogLeNetClassifier(6)))
+    img_dir, (unet_pt, gnet_pt) = fixture
+    ds = ImageFolderDataset(img_dir, wavelet=True)
+    batches = list(DataLoader(ds, 4))
+    pipe = load_two_stage(unet_pt, gnet_pt, device=dev)
+    centred_pt = centred_classifier(gnet_pt, torch.cat([
+        pipe.infer_from_rgb(torch.from_numpy(b["image"]))["cls_logits"] for b in batches]),
+        "gnet_e2e.pt")
+    launches = {}
+    for route, flags in E2E_ROUTES.items():
+        reset_counts()
         out = infer_e2e.main(["--image-dir", img_dir, "--unet-checkpoint", unet_pt,
-                              "--gnet-checkpoint", gnet_pt, "--out-dir",
-                              os.path.join(WORK, "out"), "--batch-size", "4",
-                              "--device", str(dev), *flags])
+                              "--gnet-checkpoint", centred_pt, "--out-dir",
+                              os.path.join(WORK, "out", route), "--batch-size", "4",
+                              "--device", str(dev), "--bf16", *flags])
         lines = open(out).read().splitlines()
         grades = [int(ln.split()[1]) for ln in lines]
         if len(lines) != 8 or not all(0 <= g < 6 for g in grades):
-            fail(f"result.txt: expected 8 grades in [0, 6), got {lines}")
-        say("e2e", dtype="bf16" if flags else "f32", graded=len(lines), grades=grades)
-    launches = {k: v for k, v in read_counts().items() if k.startswith("up1_")}
-    if any(v for k, v in read_counts().items() if k in TRAIN_KERNELS):
-        fail("serving launched a training kernel")
-    say("e2e", config="default", launches=launches)
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+            fail(f"{route} route: expected 8 grades in [0, 6) in result.txt, got {lines}")
+        counted = up1_launched(f"infer_e2e's {route} route")
+        for k, v in counted.items():
+            launches[k] = launches.get(k, 0) + v
+        extra = {}
+        if route == "host":
+            pipe = load_two_stage(unet_pt, centred_pt, dtype=torch.bfloat16, device=dev)
+            want = {}
+            for batch in batches:
+                got = pipe.infer_from_rgb(torch.from_numpy(batch["image"]))["grades"].tolist()
+                want.update(zip(batch["name"], got))
+            expected = sorted((infer_e2e.record(n, g) for n, g in want.items()),
+                              key=lambda r: infer_e2e.numeric_stem(r.split()[0]))
+            extra["equals_infer_from_rgb"] = lines == expected
+            if lines != expected:
+                fail(f"host route: result.txt {lines} is not infer_from_rgb's {expected}")
+        say("e2e", route=route, dtype="bf16", graded=len(lines), grades=grades,
+            launches=counted, **extra)
+    say("e2e", config="default", routes=",".join(E2E_ROUTES), launches=launches)
 
     gray = torch.from_numpy(np.stack([infer_e2e.read_gray(os.path.join(img_dir, f"{i}.png"))
                                       for i in (1, 3, 5, 7)]).astype(np.float32))
@@ -649,7 +729,183 @@ def phase_e2e(dev) -> dict:
     gnet = load_reference_state_dict(gnet_pt, GoogLeNetClassifier(6))
     check_kernel_path(dev, unet, gnet, gray)
     fused = phase_fused(dev, unet, gnet, gray)
-    return {**fused, **launches}
+    return {**fused, **launches}, fixture
+
+
+def phase_predict_seg(dev, img_dir: str, unet_pt: str) -> None:
+    """apps.predict_seg on the 8 PNGs: 8 red-on-black masks equal to
+    TwoStagePipeline.infer_masks of the same images, up1 on its kernels."""
+    from PIL import Image
+
+    from unet_goolenet_tpu_torch.apps import predict_seg
+    from unet_goolenet_tpu_torch.data import ImageFolderDataset
+    from unet_goolenet_tpu_torch.models import (
+        GoogLeNetClassifier, UNetTaskAligWeight, load_reference_state_dict)
+    from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline
+
+    # the seg head's bias moved by the median logit on these images, so
+    # that the masks are neither empty nor full
+    ds = ImageFolderDataset(img_dir, wavelet=False)
+    imgs = np.stack([ds[i]["image"] for i in range(len(ds))])
+    unet = load_reference_state_dict(unet_pt, UNetTaskAligWeight(1))
+    logits = TwoStagePipeline(unet, GoogLeNetClassifier(6), device=dev).infer_from_rgb(
+        imgs)["seg_logits"]
+    with torch.no_grad():
+        unet.outc.bias -= logits.median().cpu()
+    centred_pt = os.path.join(WORK, "unet_centred.pt")
+    torch.save({"net": unet.state_dict()}, centred_pt)
+    reset_counts()
+    seg_dir = predict_seg.main(["--image-dir", img_dir, "--checkpoint", centred_pt, "--out-dir",
+                                os.path.join(WORK, "seg"), "--batch-size", "4",
+                                "--device", str(dev)])
+    launches = up1_launched("predict_seg")
+    # the reference on the CLI's batches of 4, with its seg logits: a pixel
+    # may differ only where |logit| < 1e-3 (the seg head is centred on the
+    # median, so some logits sit next to the threshold)
+    pipe = TwoStagePipeline(unet, GoogLeNetClassifier(6), device=dev)
+    want = np.concatenate([pipe.infer_masks(imgs[i:i + 4]).cpu().numpy() for i in (0, 4)])
+    logits = np.concatenate([pipe.infer_from_rgb(imgs[i:i + 4])["seg_logits"][..., 0].cpu().numpy()
+                             for i in (0, 4)])
+    pngs = sorted(os.listdir(seg_dir))
+    if pngs != sorted(ds.names):
+        fail(f"predict_seg wrote {pngs}, expected {sorted(ds.names)}")
+    flips = near = 0
+    for name, mask, lg in zip(ds.names, want, logits):
+        png = np.asarray(Image.open(os.path.join(seg_dir, name)))
+        if png.shape != (224, 224, 3) or png[..., 1:].any() or not set(
+                np.unique(png[..., 0])) <= {0, 255}:
+            fail(f"predict_seg: {name} is not a red-on-black 224x224 mask")
+        unlike = (png[..., 0] > 0) != (mask > 0)
+        near += int((unlike & (np.abs(lg) < 1e-3)).sum())
+        flips += int((unlike & (np.abs(lg) >= 1e-3)).sum())
+    say("predict_seg", masks=len(pngs), mask_share=f"{want.mean():.3f}",
+        pixels_unlike_infer_masks_beyond_1e_3=flips, pixels_unlike_within_1e_3=near,
+        launches=launches)
+    if flips:
+        fail("predict_seg's masks are not infer_masks' on the same images")
+
+
+def serve_client(port: int, images: np.ndarray, sizes) -> list:
+    """POST images in .npy bodies of the given sizes, in order; the grades."""
+    import io
+    import urllib.request
+
+    grades, i = [], 0
+    for k in sizes:
+        buf = io.BytesIO()
+        np.save(buf, images[i:i + k] if k > 1 else images[i])
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/grade",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            grades += json.loads(r.read())["grades"]
+        i += k
+    return grades
+
+
+def phase_serve(dev, card: str, unet_pt: str, gnet_pt: str) -> None:
+    """serve --live (apps.serve.build_server) at raw_hw 400x500, max_batch
+    16, warmed, with the classifier's logits centred and scaled on the images:
+    SERVE_CLIENTS threads post one- and three-image bodies,
+    SERVE_IMAGES images in all; every grade must equal a direct infer_grades
+    of the batch the server put its image in, and in float32 also that of
+    all the images at once, leaving out images whose top two classifier
+    logits lie within 1e-3 (bf16 rounds differently at another batch size);
+    /healthz's batch histogram must hold only powers of two <= 16. float32,
+    then bf16 with overlap on and off, warmed on the dispatcher; then bf16
+    with overlap on, warmed on this thread (warm="caller")."""
+    import threading
+    import urllib.request
+
+    from unet_goolenet_tpu_torch.apps import serve
+
+    from unet_goolenet_tpu_torch.apps.common import load_two_stage
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    images = (torch.rand((SERVE_IMAGES, 400, 500), generator=g) * 255.0).numpy()
+    gnet_pt = centred_classifier(gnet_pt, load_two_stage(unet_pt, gnet_pt, device=dev)
+                                 .infer_from_gray(torch.from_numpy(images))["cls_logits"],
+                                 "gnet_serve.pt")
+    per = SERVE_IMAGES // SERVE_CLIENTS
+    sizes = [1, 3] * (per // 4)                       # one- and three-image bodies
+    for dtype, overlap, warm in ((torch.float32, True, "dispatcher"),
+                                 (torch.bfloat16, True, "dispatcher"),
+                                 (torch.bfloat16, False, "dispatcher"),
+                                 (torch.bfloat16, True, "caller")):
+        argv = ["--live", "--unet-checkpoint", unet_pt, "--gnet-checkpoint", gnet_pt,
+                "--raw-hw", "400", "500", "--max-batch", "16", "--device", str(dev)]
+        argv += (["--bf16"] if dtype == torch.bfloat16 else []) + ([] if overlap else ["--no-overlap"])
+        srv = serve.build_server(serve.parse_args(argv))
+        grader, formed = srv.batcher._grade_fn, []
+
+        def recording(batch, grader=grader, formed=formed):
+            formed.append(batch.copy())        # each device batch as the server formed it
+            return grader(batch)
+
+        srv.batcher._grade_fn = recording
+        try:
+            if warm == "dispatcher":
+                buckets = srv.warmup()
+            else:                              # every bucket once, on this thread
+                buckets = [1, 2, 4, 8, 16]
+                for b in buckets:
+                    np.asarray(grader(np.zeros((b, 400, 500), np.float32)))
+                    srv.batcher.warm.add(b)
+            del formed[:]
+            port = srv.start()
+            reset_counts()
+            got = [None] * SERVE_CLIENTS
+
+            def client(c):
+                got[c] = serve_client(port, images[c * per:(c + 1) * per], sizes)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            launches = up1_launched("serve")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            srv.close()
+        if any(x is None for x in got):
+            fail("serve: a client got no grades")
+        grades = [v for c in got for v in c]
+        pipe = grader.pipe
+        # each image's grade from a direct call on the very batch the server
+        # formed (padding rows included): equal bit for bit, whatever dtype
+        served = {images[c * per + i].tobytes(): g for c in range(SERVE_CLIENTS)
+                  for i, g in enumerate(got[c])}
+        rows = {}
+        for batch in formed:
+            for row, g in zip(batch, pipe.infer_grades(torch.from_numpy(batch)).tolist()):
+                rows.setdefault(row.tobytes(), g)
+        checks = {"grades_unlike_their_batch_rerun":
+                  sum(rows.get(k) != g for k, g in served.items())}
+        if dtype == torch.float32:
+            out = pipe.infer_from_gray(torch.from_numpy(images))
+            top2 = out["cls_logits"].topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]).cpu().numpy() >= 1e-3
+            checks["grades_unlike_infer_grades_b64"] = int(
+                ((np.asarray(grades) != out["grades"].cpu().numpy()) & sure).sum())
+            checks["left_out_near_ties"] = int((~sure).sum())
+        hist = {int(k): v for k, v in health["batch_size_histogram"].items()}
+        say("serve", dtype=dname(dtype), overlap=overlap, warm=warm, card=repr(card),
+            warmed_buckets=buckets, clients=SERVE_CLIENTS, images=len(grades),
+            images_per_s=f"{len(grades) / wall:.1f}", wall_s=f"{wall:.3f}",
+            call_ms_p50=health["call_ms_p50"], call_ms_p99=health["call_ms_p99"],
+            call_ms_max=health["call_ms_max"], first_call_ms=f"{srv.batcher.call_ms[0]:.3f}",
+            device_calls=health["device_calls"],
+            batch_histogram=hist, distinct_grades=len(set(grades)), **checks,
+            launches=launches)
+        if (len(grades) != SERVE_IMAGES or checks["grades_unlike_their_batch_rerun"]
+                or checks.get("grades_unlike_infer_grades_b64")):
+            fail("serve: the server's grades are not infer_grades' on the same images")
+        if (sum(hist.values()) != health["device_calls"] or health["images"] != SERVE_IMAGES
+                or any(k > 16 or k & (k - 1) for k in hist)):
+            fail(f"serve: /healthz's batch histogram {hist} is not of powers of two <= 16")
 
 
 def phase_fused(dev, unet, gnet, gray) -> dict:
@@ -1568,7 +1824,9 @@ def main() -> None:
     phase_build()
     errs = phase_kernels(dev)
     train_errs = phase_train_kernels(dev)
-    launches = phase_e2e(dev)
+    launches, (img_dir, (unet_pt, gnet_pt)) = phase_e2e(dev)
+    phase_predict_seg(dev, img_dir, unet_pt)
+    phase_serve(dev, card, unet_pt, gnet_pt)
     train_launches = phase_train(dev)
     kernels = phase_timing(dev, errs, launches, train_errs, train_launches)
     print(f"card: {card}", flush=True)

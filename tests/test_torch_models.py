@@ -8,6 +8,7 @@ as in tests/test_engine.py. The JAX engine's up1 tail runs its Pallas kernels
 in interpret mode.
 """
 
+import copy
 from functools import partial
 
 import numpy as np
@@ -200,3 +201,36 @@ def test_load_reference_state_dict_drops_dead_keys(tmp_path):
     with torch.no_grad():
         ggot = gnet(torch.from_numpy(np.ascontiguousarray(xg))).numpy()
     np.testing.assert_allclose(ggot, gref, rtol=1e-4, atol=1e-4)
+
+
+def test_gnet_train_mode_matches_flax(setup):
+    """One train-mode forward: BatchNorm normalises with the batch statistics
+    and advances the running ones by flax's rule (momentum 0.9, biased
+    variance, eps 1e-3), as the JAX classifier trains. The JAX side is the
+    classifier's trunk (`googlenet`) with dropout 0, on its variables; aux
+    heads are off in both. Both run in float64: at 32^2 the last levels are
+    1x1, so batch statistics come from two values each, and float32
+    rounding of the convs, through the fast variance E[y^2] - E[y]^2, moves
+    the logits by ~1e-2. Logits and every running mean and variance at
+    1e-4."""
+    from unet_goolenet_tpu.models.googlenet import GoogLeNet as JTrunk
+
+    x, _, _, _, gv, _, gnet = setup
+    with jax.enable_x64(True):
+        trunk = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                       {k: gv[k]["googlenet"] for k in ("params", "batch_stats")})
+        model = JTrunk(num_classes=6, dropout=0.0, dtype=jnp.float64)
+        ref, new = jax.jit(lambda v, a: model.apply(v, a, train=True, mutable=["batch_stats"]))(
+            trunk, jnp.asarray(x, jnp.float64))
+        ref, new = np.asarray(ref), jax.tree_util.tree_map(np.asarray, new["batch_stats"])
+    stats = gnet_from_jax({"params": gv["params"], "batch_stats": {"googlenet": new}})
+    net = copy.deepcopy(gnet).double().train()
+    net.googlenet.dropout.p = 0.0
+    with torch.no_grad():
+        got = net(torch.from_numpy(x).double()).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    ran = [k for k in stats if k.endswith(("running_mean", "running_var"))]
+    assert len(ran) == 2 * 57
+    for k in ran:
+        np.testing.assert_allclose(net.state_dict()[k].numpy(), stats[k].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)

@@ -1,6 +1,7 @@
 """The rest of the port's stage-1 trainer against the JAX package: the eval
 step, losses, optimizer, schedule, early stopping; and checkpoints and the
-`apps.train_seg` CLI (the train step itself: test_torch_train_step.py).
+`apps.train_seg` CLI (the train step itself: test_torch_train_step.py); and
+`apps.predict_seg`, whose masks are held to the same JAX eval step.
 
 Tolerances:
   * the eval step against the JAX package's `make_seg_eval_step`, float32,
@@ -11,6 +12,8 @@ Tolerances:
     early stopping: equal decisions, step by step.
 """
 
+import copy
+import os
 import shutil
 
 import numpy as np
@@ -36,12 +39,27 @@ def port_model(uv, kernels):
 # ------------------------------------------------------------ eval step
 
 
+_JAX = {}
+
+
+def jax_eval():
+    """The JAX eval step and eval-mode forward, jitted once for the module,
+    so that each compiles once at the (N, S, S, 3) batches of its tests."""
+    if not _JAX:
+        from unet_goolenet_tpu.models import UNetTaskAligWeight as JUNet
+        from unet_goolenet_tpu.train.seg import make_seg_eval_step
+
+        jm = JUNet(n_classes=1)
+        _JAX["step"] = jax.jit(make_seg_eval_step(jm))
+        _JAX["apply"] = jax.jit(lambda v, x: jm.apply(v, x, train=False))
+    return _JAX["step"], _JAX["apply"]
+
+
 @pytest.fixture(scope="module")
 def eval_ref():
     """Weights with non-trivial BatchNorm statistics, a batch, and the JAX
     eval step's loss, masks and logits on them."""
-    from unet_goolenet_tpu.models import UNetTaskAligWeight as JUNet
-    from unet_goolenet_tpu.train.seg import TrainState, make_seg_eval_step
+    from unet_goolenet_tpu.train.seg import TrainState
 
     torch.manual_seed(11)
     model = UNetTaskAligWeight(1, img_size=S)
@@ -54,10 +72,10 @@ def eval_ref():
                 buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
     uv = unet_to_jax(model.state_dict())
     imgs, labels = (a.astype(np.float32) for a in batch())
-    jm = JUNet(n_classes=1)
+    step, forward = jax_eval()
     state = TrainState(uv["params"], uv["batch_stats"], None)
-    loss, masks = jax.jit(make_seg_eval_step(jm))(state, jnp.asarray(imgs), jnp.asarray(labels))
-    logits = jax.jit(lambda v, x: jm.apply(v, x, train=False))(uv, jnp.asarray(imgs))
+    loss, masks = step(state, jnp.asarray(imgs), jnp.asarray(labels))
+    logits = forward(uv, jnp.asarray(imgs))
     return uv, imgs, labels, float(loss), np.asarray(masks), np.asarray(logits)
 
 
@@ -72,6 +90,54 @@ def test_eval_step_matches_jax(eval_ref, kernels):
     sure = np.abs(jlogits) > 1e-3
     assert sure.mean() > 0.9
     np.testing.assert_array_equal(masks.numpy()[sure], jmasks[sure])
+
+
+def test_predict_seg_matches_jax_eval_step(tmp_path, eval_ref):
+    """apps.predict_seg writes red-on-black PNGs that hold the masks of the
+    JAX package's make_seg_eval_step, from the same weights (eval_ref's, as
+    a reference `{'net': ...}` checkpoint) on the same two RGB PNGs of two
+    sizes as the JAX ImageFolderDataset reads them (batches of 1), with the
+    head centred on them: equal wherever |logit| > 1e-3, and an
+    empty csv workbook where no xlsx engine imports."""
+    from unet_goolenet_tpu.data.datasets import ImageFolderDataset as JFolder
+    from unet_goolenet_tpu.train.seg import TrainState
+
+    from unet_goolenet_tpu_torch.apps import predict_seg
+
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    rng = np.random.default_rng(8)
+    for name, hw in (("12.png", (35, 45)), ("4.png", (40, 30))):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(img_dir / name)
+    ds = JFolder(str(img_dir), img_size=S, wavelet=False)
+    imgs = jnp.asarray(np.stack([ds[i]["image"] for i in range(len(ds))]))
+    step, forward = jax_eval()
+    # the head rescaled to a logit spread of 1.5 around the median logit, so
+    # that the masks are neither empty nor full and few logits lie next to
+    # the threshold (test_torch_models.centred_models does the same)
+    uv = copy.deepcopy(eval_ref[0])
+    logits = np.asarray(forward(uv, imgs))
+    k = 1.5 / logits.std()
+    outc = uv["params"]["outc"]["conv"]
+    outc["kernel"], outc["bias"] = outc["kernel"] * k, (outc["bias"] - np.median(logits)) * k
+    torch.save({"net": port_model(uv, False).state_dict()}, tmp_path / "unet.pt")
+    seg_dir = predict_seg.main(["--device", "cpu", "--image-dir", str(img_dir),
+                                "--checkpoint", str(tmp_path / "unet.pt"), "--img-size", str(S),
+                                "--out-dir", str(tmp_path / "out"), "--batch-size", "1"])
+    _, masks = step(TrainState(uv["params"], uv["batch_stats"], None), imgs,
+                    jnp.zeros(imgs.shape[:3] + (1,)))
+    masks, logits = np.asarray(masks)[..., 0], np.asarray(forward(uv, imgs))[..., 0]
+    assert sorted(os.listdir(seg_dir)) == sorted(ds.names)
+    assert 0.05 < masks.mean() < 0.95
+    for name, mask, logit in zip(ds.names, masks, logits):
+        png = np.asarray(Image.open(os.path.join(seg_dir, name)))
+        assert png.shape == (S, S, 3) and not png[..., 1:].any()
+        assert set(np.unique(png[..., 0])) <= {0, 255}
+        sure = np.abs(logit) > 1e-3
+        assert sure.mean() > 0.9
+        np.testing.assert_array_equal((png[..., 0] > 0)[sure], mask[sure] > 0, err_msg=name)
+    assert (os.path.exists(tmp_path / "out" / "Classification_Results.xlsx")
+            or open(tmp_path / "out" / "Classification_Results.csv").read() == "\n")
 
 
 # ------------------------------------------------------------ losses, optimizer

@@ -8,8 +8,10 @@ the same files and random streams as there. Conventions:
     name>`; masks are 0/255 PNGs divided by 255 (main.py:92); the class label is
     encoded in the FIRST CHARACTER of the filename minus one (main.py:93).
   * `wavelet_enhance_host`: the stage-2 pseudo-RGB preprocessing on the host.
-The JAX package's ClsDataset and ImageFolderDataset (stage-2 training,
-prediction) are not ported yet (ROADMAP).
+  * ImageFolderDataset: a flat directory of test images, in sorted order,
+    for the e2e CLI's host path (wavelet=True) and stage-1 prediction
+    (wavelet=False, raw BGR).
+The JAX package's ClsDataset (stage-2 training) is not ported yet (ROADMAP).
 
 Image decode uses cv2 (as the reference does) with PIL fallback.
 """
@@ -127,3 +129,29 @@ class SegDataset:
             "cl_label": np.int32(cl_label),
             "name": name,
         }
+
+
+class ImageFolderDataset:
+    """Flat directory of test images; `wavelet` selects the stage-2
+    preprocessing (True: gray -> wavelet pseudo-RGB, the e2e path) or the
+    raw image (False: stage-1 prediction). Items are the eval resize of
+    either, (S, S, 3) float32 in [0, 1], and the file name."""
+
+    def __init__(self, image_dir: str, *, img_size: int = 224, wavelet: bool = True):
+        self.image_dir = image_dir
+        self.names = sorted(os.listdir(image_dir))
+        self.wavelet = wavelet
+        self.pre = Augmenter(AugmentConfig.eval(img_size))
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        name = self.names[idx]
+        path = os.path.join(self.image_dir, name)
+        if self.wavelet:
+            rgb = wavelet_enhance_host(_imread(path, grayscale=True))
+        else:
+            rgb = _imread(path, grayscale=False)
+        img, _ = self.pre(rgb, None)
+        return {"image": img.astype(np.float32), "name": name}

@@ -3,7 +3,9 @@
 Counterpart of `unet_goolenet_tpu/models/googlenet.py:116-195`, in the
 torchvision flavour the reference wraps, with torchvision's parameter names
 under the reference's `googlenet.` prefix:
-  * BasicConv2d = conv (no bias) + BatchNorm (eps 1e-3) + ReLU;
+  * BasicConv2d = conv (no bias) + BatchNorm (eps 1e-3) + ReLU; in train
+    mode the BatchNorm is flax's, as the JAX model trains it
+    (nn/blocks.py:batch_norm_train: biased variance, momentum 0.9);
   * the "5x5" inception branch uses a 3x3 kernel (torchvision's historical
     quirk, kept for weight compatibility);
   * transform_input re-normalises [0, 1]-mean-0.5 inputs to ImageNet stats;
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from unet_goolenet_tpu_torch.nn.blocks import batch_norm_train
 from unet_goolenet_tpu_torch.ops.pool import max_pool2d_nchw
 
 INCEPTION_CFG = {
@@ -54,7 +57,8 @@ class BasicConv2d(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+        y = self.conv(x)
+        return torch.relu(batch_norm_train(y, self.bn) if self.bn.training else self.bn(y))
 
 
 class Inception(nn.Module):

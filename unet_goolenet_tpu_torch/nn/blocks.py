@@ -8,8 +8,9 @@ CoordAtt3's never-called DeformConv2d is not declared (its keys are dropped
 on load, models/convert.py).
 
 BatchNorm in train mode is flax's (`batch_norm_train`), which is what the
-JAX package trains with: momentum 0.9, eps 1e-5, float32 statistics, and
-the running variance updated with the biased batch variance. torch's
+JAX package trains with: momentum 0.9, the norm's own eps (1e-5 here,
+1e-3 in GoogLeNet), float32 statistics, and the running variance updated
+with the biased batch variance. torch's
 BatchNorm2d would update it with the unbiased one (n/(n-1) larger), as the
 original torch reference did. In eval mode the running statistics
 normalise, as in BatchNorm2d.
@@ -37,20 +38,19 @@ from unet_goolenet_tpu_torch.ops.kernels import conv as K
 from unet_goolenet_tpu_torch.ops.pool import max_pool2d_nchw
 
 MOMENTUM = 0.9   # flax: running = momentum * running + (1 - momentum) * batch
-EPS = 1e-5
 
 
 def batch_norm_train(y: torch.Tensor, norm: nn.BatchNorm2d) -> torch.Tensor:
     """flax.linen.BatchNorm in train mode on NCHW y: batch statistics in
     float32 (the "fast" variance E[y^2] - E[y]^2, clipped at 0),
-    (y - mean) * rsqrt(var + eps) * weight + bias in float32, cast back to
-    y's dtype; the running statistics advance with momentum 0.9 and the
+    (y - mean) * rsqrt(var + norm.eps) * weight + bias in float32, cast back
+    to y's dtype; the running statistics advance with momentum 0.9 and the
     biased variance."""
     y32 = y.to(torch.promote_types(y.dtype, torch.float32))
     dims = (0, 2, 3)
     mean = y32.mean(dim=dims)
     var = ((y32 * y32).mean(dim=dims) - mean * mean).clamp_min(0.0)
-    mul = torch.rsqrt(var + EPS) * norm.weight
+    mul = torch.rsqrt(var + norm.eps) * norm.weight
     out = (y32 - mean[:, None, None]) * mul[:, None, None] + norm.bias[:, None, None]
     with torch.no_grad():
         norm.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)

@@ -1,6 +1,6 @@
 """The segment -> crop -> classify pipeline.
 
-Counterpart of `unet_goolenet_tpu/pipeline/two_stage.py:35-62,94-108,111-339`:
+Counterpart of `unet_goolenet_tpu/pipeline/two_stage.py:35-108,111-339`:
 
     gray (N, H, W) --wavelet_enhance--> pseudo-RGB --resize 224--> UNet -->
     sigmoid > 0.5 --> bbox (+pad 30, centre fallback) --> crop-and-resize 224
@@ -11,18 +11,21 @@ Preprocessing runs in float32 at native resolution; both models run in the
 pipeline's dtype (float32 or bfloat16, float32 accumulation). The crops are
 taken from the same 224 pseudo-RGB tensor the UNet saw, then channel-swapped,
 so the classifier sees (B, G, R) of the wavelet image, as in the reference.
+`infer_grades_padded` takes images edge-padded into one bucket buffer with
+their valid sizes (`preprocess_gray_padded`), so mixed native sizes share a
+call.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from unet_goolenet_tpu_torch.ops.bbox import roi_from_mask
-from unet_goolenet_tpu_torch.ops.resize import resize_planes
-from unet_goolenet_tpu_torch.ops.wavelet import wavelet_enhance
+from unet_goolenet_tpu_torch.ops.resize import resize_bilinear_valid, resize_planes
+from unet_goolenet_tpu_torch.ops.wavelet import wavelet_enhance, wavelet_enhance_padded
 from unet_goolenet_tpu_torch.pipeline import engine
 
 
@@ -48,6 +51,26 @@ def preprocess_gray(gray: torch.Tensor, *, out_hw: Tuple[int, int] = (224, 224)
     antialiased (PIL-semantics) bilinear resize (分类/test.py:127-130)."""
     planes = wavelet_enhance(gray, channel_first=True)            # (N, 3, H, W)
     return resize_planes(planes, out_hw, antialias=True).permute(0, 2, 3, 1)
+
+
+def preprocess_gray_padded(gray: torch.Tensor, valid_hw: Sequence[Sequence[int]], *,
+                           out_hw: Tuple[int, int] = (224, 224)) -> torch.Tensor:
+    """Size-bucket variant of preprocess_gray: gray (N, H, W) holds each
+    image edge-padded (np.pad mode="edge") into the bucket buffer, and
+    valid_hw (N, 2) each image's true size. The wavelet and its min-max run
+    over the valid region, and the antialiased resize anchors its grid to
+    it (ops.wavelet_enhance_padded, ops.resize_bilinear_valid)."""
+    planes = wavelet_enhance_padded(gray, valid_hw, channel_first=True)  # (N, 3, H, W)
+    return resize_bilinear_valid(planes, valid_hw, out_hw, antialias=True).permute(0, 2, 3, 1)
+
+
+def segment(unet_params, imgs: torch.Tensor, **fused: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The folded UNet forward (engine.unet_forward; up1 on its kernels,
+    the knobs' levels on theirs) and the threshold: (N, S, S, 3) images ->
+    (logits (N, S, S, 1), masks (N, S, S))."""
+    logits = engine.unet_forward(unet_params, imgs, **fused)
+    return logits, (torch.sigmoid(logits[..., 0]) > 0.5).float()
 
 
 def extract_roi(imgs: torch.Tensor, masks: torch.Tensor, *, padding: int = 30,
@@ -116,9 +139,7 @@ class TwoStagePipeline:
         return torch.as_tensor(t).to(self.device)
 
     def _seg(self, imgs: torch.Tensor):
-        logits = engine.unet_forward(self.unet_params, imgs, **self.fused)
-        masks = (torch.sigmoid(logits[..., 0]) > 0.5).float()
-        return logits, masks
+        return segment(self.unet_params, imgs, **self.fused)
 
     def _from_imgs(self, imgs: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits, masks = self._seg(imgs)
@@ -136,6 +157,13 @@ class TwoStagePipeline:
     def infer_grades(self, gray) -> torch.Tensor:
         """Raw grayscale (N, H, W) -> (N,) grades."""
         return self.infer_from_gray(gray)["grades"]
+
+    @inference
+    def infer_grades_padded(self, gray, valid_hw) -> torch.Tensor:
+        """Size buckets: (N, H, W) edge-padded grays and their (N, 2) valid
+        sizes -> (N,) grades."""
+        imgs = preprocess_gray_padded(self._input(gray), valid_hw, out_hw=self.hw)
+        return self._from_imgs(imgs.to(self.dtype))["grades"]
 
     @inference
     def infer_from_rgb(self, imgs) -> Dict[str, torch.Tensor]:
