@@ -101,6 +101,25 @@ Phases, one line each (the first failure exits non-zero):
      than three times the stock path plus a floor (TRAIN_TOL), over all
      leaves and leaf by leaf; the leaves whose gradient is zero
      analytically are left out of the gradients and the parameters.
+  8b. stage-2 training: 48 seeded 400x500 gray PNGs (32 train, 16 val,
+     grades 0-5 in labels/label.txt) through `apps.train_cls.main` on
+     phase 8's UNet snapshot, two epochs at batch 16, 224^2, in bf16, then
+     again with --aux-weight 0.3 --device-epoch; in each run all five
+     serving kernels' counters, set to 0 just before, must be > 0 (the
+     frozen UNet's float32 ROI extraction runs the engine with every fused
+     level), no stage-1 training kernel may launch, the losses must be
+     finite and the best checkpoint must reload. `apps.infer_e2e.main`
+     (bf16) then grades the 16 val images from phase 8's snapshot and the
+     aux run's (its aux heads dropped on load): 16 grades in [0, 6), both
+     up1 kernels launched. One float32 cls train step (aux 0.3, dropout 0,
+     batch 16) against the same step in float64 on the card: pass 0's loss
+     within 1e-4 relative and its gradients within 0.05 in L2 (the step's
+     loss, both passes, printed beside). After phase 9: ms per stage-2
+     train step, bf16 and float32 in turns (median of 5 calls), one
+     profiled bf16 step (device busy, idle share, launches), and the crop
+     augment's and the float32 all-fused ROI extraction's ms at batch 16.
+     The serving kernels' launches in the JSON line add both trainer runs'
+     counts.
   9. training timing: ms per train step and per eval step, kernels and
      stock, bf16 and float32, in turns; one profiled bf16 step each way
      (device busy, idle share, launches); each training kernel at the
@@ -125,6 +144,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1517,10 +1537,10 @@ def write_seg_fixture(root: str, counts: dict) -> None:
                 os.path.join(root, split, "labels", name))
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev) -> tuple:
     """The trainer through its entry point with --kernels (bf16), then the
     float32 kernel path against the stock path; returns the counters of the
-    trainer's run."""
+    trainer's run and its best-val-loss snapshot."""
     from unet_goolenet_tpu_torch.apps import train_seg
     from unet_goolenet_tpu_torch.train.seg import init_seg_state
 
@@ -1549,7 +1569,199 @@ def phase_train(dev) -> dict:
     _, epoch = CheckpointManager(ckpt).restore(out["best_loss_checkpoint"], state)
     say("train", checkpoint=os.path.basename(out["best_loss_checkpoint"]), reloaded_epoch=epoch)
     check_train_step(dev)
+    return launches, out["best_loss_checkpoint"]
+
+
+def write_cls_fixture(root: str, counts: dict) -> None:
+    """Seeded 400x500 gray PNGs (a bright lesion on speckle) per split, with
+    labels/label.txt ("name grade" lines, grades 0-5 in turn)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 10)
+    for split, n in counts.items():
+        for d in ("images", "labels"):
+            path = os.path.join(root, split, d)
+            os.makedirs(path, exist_ok=True)
+            for f in os.listdir(path):
+                os.remove(os.path.join(path, f))
+        lines = []
+        for i in range(n):
+            h, w = 400, 500
+            yy, xx = np.mgrid[0:h, 0:w]
+            blob = 110.0 * np.exp(-((yy - h * rng.uniform(0.3, 0.7)) ** 2
+                                    + (xx - w * rng.uniform(0.3, 0.7)) ** 2)
+                                  / (2 * rng.uniform(30, 70) ** 2))
+            img = np.clip(60 + blob + rng.normal(0, 20, (h, w)), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, split, "images", f"{i}.png"))
+            lines.append(f"{i}.png {i % 6}")
+        with open(os.path.join(root, split, "labels", "label.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+# stage-2 trainer runs (phase 8b): name -> extra flags
+CLS_RUNS = {"bf16": [], "bf16_aux_device_epoch": ["--aux-weight", "0.3", "--device-epoch"]}
+
+
+def phase_train_cls(dev, unet_pt: str) -> dict:
+    """The stage-2 trainer through its entry point on stage 1's snapshot
+    (bf16, then bf16 with aux heads and --device-epoch), each run launching
+    all five serving kernels in its ROI extraction; infer_e2e grading from
+    the two stages' snapshots; the float32 step against float64.
+    Returns the serving kernels' launches over both trainer runs. Its
+    timings (time_train_cls) run after phase 9's, so that its profiler
+    trace does not come before theirs."""
+    from unet_goolenet_tpu_torch.apps import infer_e2e, train_cls
+    from unet_goolenet_tpu_torch.train.checkpoint import CheckpointManager
+    from unet_goolenet_tpu_torch.train.cls import init_cls_state
+
+    root = os.path.join(WORK, "cls")
+    write_cls_fixture(root, {"train": 32, "val": 16})
+    launches, best = dict.fromkeys(KERNELS, 0), {}
+    for name, flags in CLS_RUNS.items():
+        ckpt, log = os.path.join(WORK, f"cls_ckpt_{name}"), os.path.join(WORK, f"cls_log_{name}")
+        for d in (ckpt, log):
+            shutil.rmtree(d, ignore_errors=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_cls.main(["--train-dir", os.path.join(root, "train"), "--val-dir",
+                              os.path.join(root, "val"), "--unet-checkpoint", unet_pt,
+                              "--epochs", "2", "--batch-size", "16", "--img-size", "224",
+                              "--bf16", "--device", str(dev), "--save-dir", ckpt,
+                              "--log-dir", log, "--seed", str(SEED), *flags])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        counted = {k: counts[k] for k in KERNELS}
+        with open(os.path.join(log, "train_cls.jsonl")) as f:
+            epochs = [json.loads(ln) for ln in f]
+        losses = [(e["train_loss"], e["val_loss"]) for e in epochs]
+        say("train_cls", entry=f"apps.train_cls.main --bf16 {' '.join(flags)}".strip(),
+            epochs=len(epochs), batch=16, img=224, seconds=f"{secs:.2f}",
+            train_val_losses=repr([(round(a, 5), round(b, 5)) for a, b in losses]),
+            best_acc=f"{out['best_acc']:.4f}", launches=counted)
+        if min(counted.values()) == 0:
+            fail(f"train_cls {name}: a kernel of the ROI extraction never launched: {counted}")
+        if any(counts[k] for k in TRAIN_KERNELS):
+            fail(f"train_cls {name} launched a stage-1 training kernel")
+        if len(epochs) != 2 or not np.isfinite(np.array(losses)).all():
+            fail(f"train_cls {name}: losses not finite or epochs missing: {losses}")
+        aux = "--aux-weight" in flags
+        state = init_cls_state(6, aux_logits=aux, device=dev)
+        _, epoch = CheckpointManager(ckpt).restore(out["best_loss_checkpoint"], state)
+        say("train_cls", checkpoint=os.path.basename(out["best_loss_checkpoint"]),
+            reloaded_epoch=epoch, aux_heads=aux)
+        for k, v in counted.items():
+            launches[k] += v
+        best[name] = out["best_loss_checkpoint"]
+
+    # the user's whole chain: both stages' snapshots graded by infer_e2e
+    reset_counts()
+    result = infer_e2e.main(["--image-dir", os.path.join(root, "val", "images"),
+                             "--unet-checkpoint", unet_pt, "--gnet-checkpoint",
+                             best["bf16_aux_device_epoch"], "--out-dir",
+                             os.path.join(WORK, "out", "cls_chain"), "--batch-size", "16",
+                             "--device", str(dev), "--bf16"])
+    lines = open(result).read().splitlines()
+    grades = [int(ln.split()[1]) for ln in lines]
+    if len(lines) != 16 or not all(0 <= g < 6 for g in grades):
+        fail(f"infer_e2e from the trained snapshots: expected 16 grades in [0, 6), got {lines}")
+    say("train_cls", chain="infer_e2e --bf16 from train_seg's and train_cls's snapshots",
+        graded=len(lines), grades=grades, launches=up1_launched("infer_e2e (trained chain)"))
+    check_cls_step(dev)
     return launches
+
+
+def check_cls_step(dev) -> None:
+    """One float32 cls train step (TF32 off) with aux heads at batch 16,
+    224^2, against the same step in float64 on the card, from the same
+    weights and batch, dropout at 0: pass 0's loss within 1e-4 relative and
+    its gradients within 0.05 in L2 over the whole (the difference's norm
+    over the float64 gradient's). The step's loss, the mean of both passes,
+    is printed beside: pass 1 follows AdamW's first update, lr * sign(g) for
+    all but tiny gradients, which flips the elements whose gradient is
+    rounding noise, so float32 and float64 part there by more than the
+    rounding of one pass."""
+    from unet_goolenet_tpu_torch.models import GoogLeNetClassifier
+    from unet_goolenet_tpu_torch.train import optim
+    from unet_goolenet_tpu_torch.train.cls import ClsState, make_cls_train_step
+    from unet_goolenet_tpu_torch.train.losses import aux_weighted_cross_entropy
+
+    torch.manual_seed(SEED + 11)
+    sd = GoogLeNetClassifier(6, aux_logits=True).state_dict()
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    crops = torch.rand((16, 224, 224, 3), generator=g, device=dev)
+    se_out = torch.randn((16, 224, 224, 1), generator=g, device=dev) * 3.0
+    labels = torch.arange(16, device=dev) % 6
+
+    def run(dtype):
+        model = GoogLeNetClassifier(6, aux_logits=True)
+        model.load_state_dict(sd)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        model = model.to(dev, dtype).train()
+        state = ClsState(model, optim.make_adamw(model.parameters(), 1e-4))
+        grads, outs = {}, []
+
+        def keep(*_):   # pass 0's gradients, at the first AdamW update
+            if not grads:
+                grads.update({k: p.grad.detach().double().clone()
+                              for k, p in model.named_parameters()})
+
+        state.opt.register_step_pre_hook(keep)
+        model.register_forward_hook(lambda m, a, out: outs.append(out))
+        loss = make_cls_train_step(state, aux_weight=0.3)(
+            crops.to(dtype), labels, se_out.to(dtype))["loss"].item()
+        main, aux2, aux1 = outs[0]
+        loss0 = aux_weighted_cross_entropy(main, [aux1, aux2], labels, aux_weight=0.3).item()
+        return loss0, loss, grads
+
+    (p64, l64, g64), (p32, l32, g32) = run(torch.float64), run(torch.float32)
+    rel0, rel = abs(p32 - p64) / abs(p64), abs(l32 - l64) / abs(l64)
+    l2 = lambda ts: sum(float((t * t).sum()) for t in ts) ** 0.5
+    grad = l2(g32[k] - g64[k] for k in g64) / l2(g64.values())
+    say("train_cls", check="f32 cls step (aux 0.3) vs float64 on the card, 224^2 batch 16",
+        loss0_64=f"{p64:.8f}", loss0_rel_err=f"{rel0:.3e}", grad0_l2_rel=f"{grad:.3e}",
+        step_loss64=f"{l64:.8f}", step_loss_rel_err=f"{rel:.3e}", leaves=len(g64),
+        tol="pass 0: loss 1e-4, grads 0.05")
+    if not (rel0 <= 1e-4 and grad <= 0.05):
+        fail("the float32 cls train step's pass 0 is further from float64 than the tolerance")
+
+
+def time_train_cls(dev, unet_pt: str) -> None:
+    """ms per stage-2 train step at batch 16, 224^2, bf16 and float32 (CUDA
+    events, median of 5 single calls), one profiled bf16 step (device busy
+    against wall, launches), and the crop augment's and the float32 ROI
+    extraction's ms at batch 16."""
+    from unet_goolenet_tpu_torch.apps.train_cls import make_roi_extractor
+    from unet_goolenet_tpu_torch.data.augment import AugmentConfig
+    from unet_goolenet_tpu_torch.data.augment_device import make_device_augment
+    from unet_goolenet_tpu_torch.models import UNetTaskAligWeight, load_reference_state_dict
+    from unet_goolenet_tpu_torch.pipeline import preprocess_gray
+    from unet_goolenet_tpu_torch.train.cls import init_cls_state, make_cls_train_step
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    imgs = preprocess_gray(torch.rand((16, 400, 500), generator=g, device=dev) * 255.0)
+    unet = load_reference_state_dict(unet_pt, UNetTaskAligWeight(1))
+    extract = make_roi_extractor(unet, 224, fused=True, device=dev)
+    crops, se_out = (t.clone() for t in extract(imgs))
+    labels = torch.arange(16, device=dev) % 6
+    augment = make_device_augment(AugmentConfig.cls_train(224))
+    steps = {}
+    for bf16 in (True, False):
+        torch.manual_seed(SEED + 14)
+        state = init_cls_state(6, device=dev)
+        steps[bf16] = partial(make_cls_train_step(state, bf16=bf16), crops, labels, se_out, g)
+    for bf16 in (True, False, False, True):
+        med, lo, hi = cuda_ms_spread(steps[bf16], rounds=5, reps=1)
+        say("train_cls", what="train_step", dtype="bfloat16" if bf16 else "float32", batch=16,
+            img=224, median_ms=f"{med:.3f}", min_ms=f"{lo:.3f}", max_ms=f"{hi:.3f}", calls=5)
+    profile_call(steps[True], "train_cls_step_bf16_b16")
+    for what, fn in (("crop_augment", lambda: augment(g, crops)),
+                     ("roi_extraction_f32_fused", lambda: extract(imgs))):
+        med, lo, hi = cuda_ms_spread(fn, rounds=5, reps=1)
+        say("train_cls", what=what, batch=16, img=224, median_ms=f"{med:.3f}",
+            min_ms=f"{lo:.3f}", max_ms=f"{hi:.3f}", calls=5)
 
 
 def one_train_step(dev, sd, imgs, labels, kernels: bool, dtype) -> dict:
@@ -1827,8 +2039,11 @@ def main() -> None:
     launches, (img_dir, (unet_pt, gnet_pt)) = phase_e2e(dev)
     phase_predict_seg(dev, img_dir, unet_pt)
     phase_serve(dev, card, unet_pt, gnet_pt)
-    train_launches = phase_train(dev)
+    train_launches, unet_snapshot = phase_train(dev)
+    cls_launches = phase_train_cls(dev, unet_snapshot)
+    launches = {k: v + cls_launches.get(k, 0) for k, v in launches.items()}
     kernels = phase_timing(dev, errs, launches, train_errs, train_launches)
+    time_train_cls(dev, unet_snapshot)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

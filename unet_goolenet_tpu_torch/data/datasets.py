@@ -1,17 +1,22 @@
 """Datasets mirroring the reference's disk conventions (SURVEY.md §4 fixtures).
 
 The port's own copy of `unet_goolenet_tpu/data/datasets.py` (SegDataset,
-`_imread`, `wavelet_enhance_host`, `_resize_bilinear_np`): numpy arrays out,
-the same files and random streams as there. Conventions:
+ClsDataset, ImageFolderDataset, `_imread`, `wavelet_enhance_host`,
+`_resize_bilinear_np`): numpy arrays out, the same files and random streams
+as there. Conventions:
 
   * SegDataset (分割/main.py:53-103): `<root>/images/*.png` + `<root>/labels/<same
     name>`; masks are 0/255 PNGs divided by 255 (main.py:92); the class label is
     encoded in the FIRST CHARACTER of the filename minus one (main.py:93).
+  * ClsDataset (分类/ROI_main.py:100-162): `<root>/images/*` +
+    `<root>/labels/label.txt` of "name label" lines (labels as written); a
+    gray read, the wavelet pseudo-RGB and the eval resize. The ROI crop and
+    its augmentation run on the device in the trainer; `roi_augment` is the
+    host Augmenter of the crops, kept as in the JAX package.
   * `wavelet_enhance_host`: the stage-2 pseudo-RGB preprocessing on the host.
   * ImageFolderDataset: a flat directory of test images, in sorted order,
     for the e2e CLI's host path (wavelet=True) and stage-1 prediction
     (wavelet=False, raw BGR).
-The JAX package's ClsDataset (stage-2 training) is not ported yet (ROADMAP).
 
 Image decode uses cv2 (as the reference does) with PIL fallback.
 """
@@ -127,6 +132,39 @@ class SegDataset:
             "image": img.astype(np.float32),              # (S, S, 3) in [0,1]
             "se_label": msk[..., None].astype(np.float32),  # (S, S, 1) {0,1}
             "cl_label": np.int32(cl_label),
+            "name": name,
+        }
+
+
+class ClsDataset:
+    def __init__(self, root: str, *, img_size: int = 224, train: bool = False,
+                 rng: Optional[np.random.Generator] = None):
+        self.image_dir = os.path.join(root, "images")
+        self.names: List[str] = []
+        self.labels: List[int] = []
+        with open(os.path.join(root, "labels", "label.txt")) as f:
+            for line in f:
+                if line.strip():
+                    name, label = line.split()
+                    self.names.append(name)
+                    self.labels.append(int(label))
+        self.img_size = img_size
+        # the reference's augm1: the eval resize of the wavelet image
+        self.pre = Augmenter(AugmentConfig.eval(img_size), rng)
+        self.roi_augment = Augmenter(
+            AugmentConfig.cls_train(img_size) if train else AugmentConfig.eval(img_size), rng)
+        self.train = train
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        name = self.names[idx]
+        rgb = wavelet_enhance_host(_imread(os.path.join(self.image_dir, name), grayscale=True))
+        img, _ = self.pre(rgb, None)
+        return {
+            "image": img.astype(np.float32),  # (S, S, 3) wavelet pseudo-RGB in [0, 1]
+            "cl_label": np.int32(self.labels[idx]),
             "name": name,
         }
 

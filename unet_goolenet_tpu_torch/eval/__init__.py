@@ -1,6 +1,9 @@
-"""Validation metrics of stage-1 training (Dice, IoU, Hausdorff)."""
+"""Validation metrics of both stages: Dice, IoU, Hausdorff; confusion
+matrix, macro F1, accuracy and AUROC."""
 
 from unet_goolenet_tpu_torch.eval.metrics import (
-    SegMetrics, dice_score, hausdorff_distance, iou_score)
+    ClsMetrics, SegMetrics, confusion_matrix, dice_score, hausdorff_distance, iou_score,
+    macro_accuracy, macro_auroc, macro_f1)
 
-__all__ = ["SegMetrics", "dice_score", "hausdorff_distance", "iou_score"]
+__all__ = ["ClsMetrics", "SegMetrics", "confusion_matrix", "dice_score", "hausdorff_distance",
+           "iou_score", "macro_accuracy", "macro_auroc", "macro_f1"]

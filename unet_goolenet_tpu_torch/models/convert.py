@@ -6,7 +6,9 @@
   `{'net': state_dict}` or a bare state dict. The reference's
   declared-but-never-called parameters are dropped first (fc1/fc2 of
   UNetTaskAligWeight, CoordAtt3's `deformabel`, the transformer's
-  `cross_attention_seg`); everything else loads strictly.
+  `cross_attention_seg`), and so are GoogLeNet's aux heads when the model
+  has none (they do not touch its eval output: a classifier trained with
+  `--aux-weight` serves without them); everything else loads strictly.
 * `unet_from_jax(variables)` / `gnet_from_jax(variables)` invert the JAX
   package's converter (`unet_goolenet_tpu/models/convert.py`): its flax
   variables, given as nested dicts of numpy arrays, become a port state dict.
@@ -29,6 +31,7 @@ from torch import nn
 from unet_goolenet_tpu_torch.models.googlenet import INCEPTION_CFG
 
 _DEAD = re.compile(r"^(fc1|fc2)\.|\.deformabel\.|\.cross_attention_seg\.")
+_AUX = re.compile(r"^googlenet\.aux[12]\.")
 
 
 def load_reference_state_dict(path: str, model: nn.Module) -> nn.Module:
@@ -37,7 +40,9 @@ def load_reference_state_dict(path: str, model: nn.Module) -> nn.Module:
         if isinstance(sd.get(key), dict):
             sd = sd[key]
             break
-    model.load_state_dict({k: v for k, v in sd.items() if not _DEAD.search(k)},
+    own = model.state_dict()
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if not (_DEAD.search(k) or (_AUX.match(k) and k not in own))},
                           strict=True)
     return model
 
@@ -169,8 +174,10 @@ def unet_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return variables
 
 
-def gnet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX GoogLeNetClassifier variables -> port GoogLeNetClassifier state dict."""
+def gnet_from_jax(variables: Dict[str, Any], aux: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX GoogLeNetClassifier variables -> port GoogLeNetClassifier state
+    dict; aux=True carries the aux heads across too, as
+    `convert_googlenet_classifier(aux=True)` does the other way."""
     o = _Out(variables)
     p, s = o.p["googlenet"], o.s["googlenet"]
 
@@ -185,5 +192,10 @@ def gnet_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for inc in INCEPTION_CFG:
         for jname, tname in branches.items():
             basic(f"{inc}.{tname}", p[inc][jname], s[inc][jname])
+    if aux:
+        for head in ("aux1", "aux2"):
+            basic(f"{head}.conv", p[head]["conv"], s[head]["conv"])
+            o.linear(f"googlenet.{head}.fc1", p[head]["fc1"])
+            o.linear(f"googlenet.{head}.fc2", p[head]["fc2"])
     o.linear("googlenet.fc", p["fc"])
     return o.sd

@@ -1,2 +1,2 @@
-"""Stage-1 (segmentation) training: losses, optimizer, the refinement train
-step, checkpoints."""
+"""Training of both stages: losses, optimizer, the refinement train steps
+(seg.py, cls.py), the device-resident epoch runner, checkpoints."""

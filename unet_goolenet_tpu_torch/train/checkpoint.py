@@ -5,17 +5,20 @@ snapshot and a best-metric snapshot, each replacing the previous one (its
 file is deleted), an optional every-N-epochs snapshot kept for good, and
 `restore`, which the reference lacks, for `--resume` and `--warm-start`. A
 snapshot is one `torch.save` file (the port's own format, not orbax's):
-{"model": state dict, "optimizer": AdamW state dict, "epoch": int}.
+{"model": state dict, "optimizer": AdamW state dict, "epoch": int}. A state
+is any (model, opt) pair: the seg trainer's SegState or the classifier's
+ClsState.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, TypeVar
 
 import torch
 
-from unet_goolenet_tpu_torch.train.seg import SegState
+# SegState, ClsState: what the manager reads and writes, .model and .opt
+State = TypeVar("State", bound=Tuple[torch.nn.Module, torch.optim.Optimizer])
 
 
 class CheckpointManager:
@@ -26,7 +29,7 @@ class CheckpointManager:
         self._best_loss_path: Optional[str] = None
         self._best_metric_path: Optional[str] = None
 
-    def _save(self, path: str, state: SegState, epoch: int) -> str:
+    def _save(self, path: str, state: State, epoch: int) -> str:
         tmp = f"{path}.tmp"
         torch.save({"model": state.model.state_dict(), "optimizer": state.opt.state_dict(),
                     "epoch": int(epoch)}, tmp)
@@ -38,14 +41,14 @@ class CheckpointManager:
         if path and os.path.exists(path):
             os.remove(path)
 
-    def save_best_loss(self, state: SegState, epoch: int) -> str:
+    def save_best_loss(self, state: State, epoch: int) -> str:
         """A new best-val-loss snapshot; the previous one is deleted."""
         path = os.path.join(self.directory, f"best_model_epoch{epoch}.pt")
         self._remove(self._best_loss_path)
         self._best_loss_path = self._save(path, state, epoch)
         return path
 
-    def save_best_metric(self, state: SegState, epoch: int, tag: str = "seg") -> str:
+    def save_best_metric(self, state: State, epoch: int, tag: str = "seg") -> str:
         """A new best-metric snapshot (dice for seg); the previous one is
         deleted."""
         path = os.path.join(self.directory, f"best_{tag}_model_epoch{epoch}.pt")
@@ -53,14 +56,14 @@ class CheckpointManager:
         self._best_metric_path = self._save(path, state, epoch)
         return path
 
-    def save_periodic(self, state: SegState, epoch: int) -> Optional[str]:
+    def save_periodic(self, state: State, epoch: int) -> Optional[str]:
         """An every-N-epochs snapshot, kept for good."""
         if self.periodic_every and epoch % self.periodic_every == 0:
             return self._save(os.path.join(self.directory, f"model_epoch{epoch}.pt"), state,
                               epoch)
         return None
 
-    def restore(self, path: str, state: SegState) -> Tuple[SegState, int]:
+    def restore(self, path: str, state: State) -> Tuple[State, int]:
         """Load a snapshot into `state` (in place, onto its model's device);
         returns (state, the snapshot's epoch)."""
         dev = next(state.model.parameters()).device
