@@ -55,6 +55,27 @@ Phases, one line each (the first failure exits non-zero):
      when its own thread was not warmed. Each prints images/s,
      per-call p50/p99 ms, the first call's ms and the histogram beside the
      card's name and power limit.
+  5d. export (the serving graph as a torch.export artifact, bf16, 400x500:
+     the 8 PNGs, the 360x480 ones edge-padded, then 56 copies of them with
+     seeded noise; the fixture checkpoints, the classifier's logits centred
+     on these 64): `apps.export_serving.main --bf16 --check` exports the
+     default pipeline with a symbolic batch and checks it; a fresh
+     `python -c` that imports only `unet_goolenet_tpu_torch.pipeline.export`
+     loads it and grades the 8 PNGs at N = 1, 3 and 8: the grades must be
+     the live pipeline's (and not all alike), both up1 kernels must launch
+     through the artifact, and no model module and no jax may be loaded.
+     The all-fused pipeline exported with keep_fused at static_batch=16
+     grades the first 20 of the 64 images as chunks of 16, the last padded
+     with zero images: all five serving kernels' counters, set to 0 just
+     before, must be > 0 through the artifact, and its grades must be the
+     live all-fused pipeline's on the same chunks. `serve --artifact` (max
+     batch 16, warmed) driven by 8 client threads as in 5c with the 64
+     images: every grade the live pipeline's on the batch the server
+     formed. Then the bf16 grades' time of the artifact against the live
+     call (default at batch 16 and 64, all-fused at 16), in turns (CUDA
+     events, median of 7 rounds of 3 calls), beside the card's name and
+     power limit, and the default artifact's host time and one profiled
+     call (device busy, idle share, launches) at each size.
   6. timing (CUDA events, after warm-up): infer_grades images/s at batch 16
      and 64 in bf16 and float32 (median of 7 rounds), the default, all-fused
      and up2 + down1 configurations in turns (forwards, then backwards);
@@ -187,6 +208,28 @@ E2E_ROUTES = {"host": [], "device": ["--device-preprocess"],
               "buckets": ["--device-preprocess", "--size-buckets", "2"]}
 # serve --live: concurrent clients and images in all (phase 5c)
 SERVE_CLIENTS, SERVE_IMAGES = 8, 64
+# phase 5d: the batch sizes the reloaded artifact grades the 8 PNGs at, and
+# the all-fused static-batch artifact's batch and the images it grades
+EXPORT_BATCHES = (1, 3, 8)
+EXPORT_STATIC, EXPORT_STATIC_IMAGES = 16, 20
+# phase 5d's loader, run in a fresh interpreter that imports only the export
+# module: it grades the .npy batch at each of EXPORT_BATCHES and reports the
+# up1 kernels' launches and which of the modules named after it are loaded
+EXPORT_LOADER = """
+import json, sys
+import numpy as np
+from unet_goolenet_tpu_torch.pipeline.export import load_serving
+artifact = load_serving(sys.argv[1])
+gray = np.load(sys.argv[2])
+grades = {n: artifact(gray[:n]).tolist() for n in %r}
+up1 = sys.modules["unet_goolenet_tpu_torch.ops.kernels.up1"]
+print(json.dumps({"grades": grades, "loaded": [m for m in sys.argv[3:] if m in sys.modules],
+                  "launches": {"up1_gate": up1.up1_gate.launches,
+                               "up1_tail": up1.up1_tail.launches}}))
+""" % (EXPORT_BATCHES,)
+# modules a loaded artifact must not need
+EXPORT_ABSENT = ("unet_goolenet_tpu_torch.models", "unet_goolenet_tpu_torch.pipeline.engine",
+                 "unet_goolenet_tpu_torch.pipeline.two_stage", "unet_goolenet_tpu", "jax")
 # the decoder levels up2, up3, up4 at 224^2: (output size, C, cq)
 LEVELS = ((112, 128, 64), (56, 256, 128), (28, 512, 256))
 # kernels 6-9 of the training path: wrapper -> (source, the TPU kernel it replaces)
@@ -242,6 +285,14 @@ TRAIN_TOL = dict(ratio=3.0, zero=1e-10,
 # kernels' float32 route), and device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# the profiler traces (trace_device_ms, level_stages, profile_call) start
+# with many short launches of ATen's spin kernel (torch.cuda._sleep), waited
+# for, whose events nothing counts: a trace loses the device events of its
+# start, more of them the older the process (chip_trace_loss.py: none in
+# its first traces, then one more every ~16 s, 16 at 300 s; level_stages
+# has lost 112 at once), so the primer is there to be lost. A trace that still holds one of its spins lost
+# nothing after them. 20k cycles are ~10 us at the H100's 1.98 GHz.
+PRIMER_KERNEL, PRIMER_LAUNCHES, PRIMER_CYCLES = "spin_kernel", 512, 20_000
 
 
 def fail(msg: str) -> None:
@@ -266,7 +317,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def trace_device_ms(fns: dict, reps: int = 5, launches: dict = None) -> dict:
+def prime() -> None:
+    """PRIMER_LAUNCHES spin kernels, waited for (see PRIMER_KERNEL)."""
+    for _ in range(PRIMER_LAUNCHES):
+        torch.cuda._sleep(PRIMER_CYCLES)
+    torch.cuda.synchronize()
+
+
+def seal() -> None:
+    """One spin kernel, not waited for: the last event of a traced run, so
+    that a trace that holds it lost nothing at its end."""
+    torch.cuda._sleep(PRIMER_CYCLES)
+
+
+def trace_device_ms(fns: dict, reps: int = 5, launches: dict = None, tries: int = 3) -> dict:
     """Mean device milliseconds per call of each fns[label], all from one
     profiler trace: the device time of every kernel and copy the call
     launches. Unlike cuda_ms it leaves out the gaps in which the device
@@ -275,9 +339,12 @@ def trace_device_ms(fns: dict, reps: int = 5, launches: dict = None) -> dict:
     times inside record_function(label). A device event belongs to the
     label whose host range holds the runtime call that launched it (the two
     share a correlation id), so host and device clocks are never compared.
-    The trace may lose the device events of the first calls after it starts
-    (one run lost the first label's), so it starts with one unlabelled call
-    of the first fn, whose device time counts as unattributed.
+    The trace may lose the device events of its start (runs lost the first
+    label's), so it starts with the primer (prime), left out of every sum,
+    then one unlabelled call of the first fn, whose device time counts as
+    unattributed; it ends with the seal (seal). A trace that lost the whole
+    primer or the seal is taken again, up to `tries` times, and the line
+    says how many spins the one used holds.
     Fails if a label holds no device time. If `launches` is given, it
     receives each label's device events (kernels and copies) per call."""
     import bisect
@@ -287,16 +354,27 @@ def trace_device_ms(fns: dict, reps: int = 5, launches: dict = None) -> dict:
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        next(iter(fns.values()))()
-        torch.cuda.synchronize()
-        for label, fn in fns.items():
-            with record_function(label):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-    events = prof.profiler.kineto_results.events()
-    on_device = [str(k.device_type()).endswith("CUDA") for k in events]
+    for trace in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prime()
+            next(iter(fns.values()))()
+            torch.cuda.synchronize()
+            for label, fn in fns.items():
+                with record_function(label):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+            seal()
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        on_device = [str(k.device_type()).endswith("CUDA") for k in events]
+        # (start, is a spin) of each device event: the first a primer's spin,
+        # the last the seal, when the trace lost no call's
+        order = sorted((k.start_ns(), PRIMER_KERNEL in k.name())
+                       for k, dev in zip(events, on_device) if dev)
+        seen = sum(spin for _, spin in order)
+        if len(order) > seen >= 2 and order[0][1] and order[-1][1]:
+            break
     spans = sorted((k.start_ns(), k.start_ns() + k.duration_ns(), k.name())
                    for k, dev in zip(events, on_device) if not dev and k.name() in fns)
     starts = [sp[0] for sp in spans]
@@ -305,8 +383,8 @@ def trace_device_ms(fns: dict, reps: int = 5, launches: dict = None) -> dict:
                 if not dev and k.name().startswith("cu")}
     ns, count, lost = dict.fromkeys(fns, 0), dict.fromkeys(fns, 0), 0
     for k, dev in zip(events, on_device):
-        if not dev or k.name() in fns:
-            continue        # host events, and the device-side copies of the ranges
+        if not dev or k.name() in fns or PRIMER_KERNEL in k.name():
+            continue        # host events, the device-side copies of the ranges, the primer
         t = launched.get(k.correlation_id())
         i = -1 if t is None else bisect.bisect_right(starts, t) - 1
         if i >= 0 and t <= spans[i][1]:
@@ -315,8 +393,9 @@ def trace_device_ms(fns: dict, reps: int = 5, launches: dict = None) -> dict:
         else:
             lost += k.duration_ns()
     empty = [label for label, t in ns.items() if t <= 0]
-    say("timing", what="trace", labels=len(fns), calls_per_label=reps,
-        device_ms=f"{sum(ns.values()) / 1e6:.3f}", device_ms_unattributed=f"{lost / 1e6:.3f}")
+    say("timing", what="trace", labels=len(fns), calls_per_label=reps, traces=trace,
+        spins_seen=f"{seen}/{PRIMER_LAUNCHES + 1}", device_ms=f"{sum(ns.values()) / 1e6:.3f}",
+        device_ms_unattributed=f"{lost / 1e6:.3f}")
     if empty:
         fail(f"the trace holds no device time for {len(empty)} of {len(fns)} calls, "
              f"e.g. {empty[:3]}")
@@ -822,6 +901,86 @@ def serve_client(port: int, images: np.ndarray, sizes) -> list:
     return grades
 
 
+def drive_server(srv, images: np.ndarray, warm: str = "dispatcher") -> dict:
+    """Warm the server (on its dispatcher, or by calls on this thread when
+    warm="caller"), start it, and post `images` from SERVE_CLIENTS threads
+    in one- and three-image bodies, counters set to 0 just before. Returns
+    each image's grade (keyed by its bytes), the grades in post order, the
+    device batches as the server formed them (padding rows included), the
+    up1 kernels' launches, /healthz, the warmed buckets and the wall
+    seconds."""
+    import threading
+    import urllib.request
+
+    grader, formed = srv.batcher._grade_fn, []
+
+    def recording(batch):
+        formed.append(batch.copy())        # each device batch as the server formed it
+        return grader(batch)
+
+    srv.batcher._grade_fn = recording
+    per = len(images) // SERVE_CLIENTS
+    sizes = [1, 3] * (per // 4)                       # one- and three-image bodies
+    try:
+        if warm == "dispatcher":
+            buckets = srv.warmup()
+        else:                              # every bucket once, on this thread
+            buckets = [1, 2, 4, 8, 16]
+            for b in buckets:
+                np.asarray(grader(np.zeros((b, *images.shape[1:]), np.float32)))
+                srv.batcher.warm.add(b)
+        del formed[:]
+        port = srv.start()
+        reset_counts()
+        got = [None] * SERVE_CLIENTS
+
+        def client(c):
+            got[c] = serve_client(port, images[c * per:(c + 1) * per], sizes)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = up1_launched("serve")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.close()
+    if any(x is None for x in got):
+        fail("serve: a client got no grades")
+    served = {images[c * per + i].tobytes(): g for c in range(SERVE_CLIENTS)
+              for i, g in enumerate(got[c])}
+    return dict(served=served, grades=[v for c in got for v in c], formed=formed,
+                launches=launches, health=health, buckets=buckets, wall=wall)
+
+
+def unlike_batch_rerun(run: dict, infer_grades) -> int:
+    """How many served grades differ from `infer_grades` of the very batch
+    the server formed for them (padding rows included): equal bit for bit,
+    whatever the dtype."""
+    rows = {}
+    for batch in run["formed"]:
+        for row, g in zip(batch, infer_grades(torch.from_numpy(batch)).tolist()):
+            rows.setdefault(row.tobytes(), g)
+    return sum(rows.get(k) != g for k, g in run["served"].items())
+
+
+def histogram(health: dict) -> dict:
+    return {int(k): v for k, v in health["batch_size_histogram"].items()}
+
+
+def check_histogram(health: dict, images: int) -> None:
+    """Fails unless /healthz's batch histogram holds only powers of two
+    <= 16 that account for every device call and image."""
+    hist = histogram(health)
+    if (sum(hist.values()) != health["device_calls"] or health["images"] != images
+            or any(k > 16 or k & (k - 1) for k in hist)):
+        fail(f"serve: /healthz's batch histogram {hist} is not of powers of two <= 16")
+
+
 def phase_serve(dev, card: str, unet_pt: str, gnet_pt: str) -> None:
     """serve --live (apps.serve.build_server) at raw_hw 400x500, max_batch
     16, warmed, with the classifier's logits centred and scaled on the images:
@@ -833,20 +992,14 @@ def phase_serve(dev, card: str, unet_pt: str, gnet_pt: str) -> None:
     /healthz's batch histogram must hold only powers of two <= 16. float32,
     then bf16 with overlap on and off, warmed on the dispatcher; then bf16
     with overlap on, warmed on this thread (warm="caller")."""
-    import threading
-    import urllib.request
-
     from unet_goolenet_tpu_torch.apps import serve
 
     from unet_goolenet_tpu_torch.apps.common import load_two_stage
 
-    g = torch.Generator().manual_seed(SEED + 5)
-    images = (torch.rand((SERVE_IMAGES, 400, 500), generator=g) * 255.0).numpy()
+    images = serve_images()
     gnet_pt = centred_classifier(gnet_pt, load_two_stage(unet_pt, gnet_pt, device=dev)
                                  .infer_from_gray(torch.from_numpy(images))["cls_logits"],
                                  "gnet_serve.pt")
-    per = SERVE_IMAGES // SERVE_CLIENTS
-    sizes = [1, 3] * (per // 4)                       # one- and three-image bodies
     for dtype, overlap, warm in ((torch.float32, True, "dispatcher"),
                                  (torch.bfloat16, True, "dispatcher"),
                                  (torch.bfloat16, False, "dispatcher"),
@@ -855,55 +1008,10 @@ def phase_serve(dev, card: str, unet_pt: str, gnet_pt: str) -> None:
                 "--raw-hw", "400", "500", "--max-batch", "16", "--device", str(dev)]
         argv += (["--bf16"] if dtype == torch.bfloat16 else []) + ([] if overlap else ["--no-overlap"])
         srv = serve.build_server(serve.parse_args(argv))
-        grader, formed = srv.batcher._grade_fn, []
-
-        def recording(batch, grader=grader, formed=formed):
-            formed.append(batch.copy())        # each device batch as the server formed it
-            return grader(batch)
-
-        srv.batcher._grade_fn = recording
-        try:
-            if warm == "dispatcher":
-                buckets = srv.warmup()
-            else:                              # every bucket once, on this thread
-                buckets = [1, 2, 4, 8, 16]
-                for b in buckets:
-                    np.asarray(grader(np.zeros((b, 400, 500), np.float32)))
-                    srv.batcher.warm.add(b)
-            del formed[:]
-            port = srv.start()
-            reset_counts()
-            got = [None] * SERVE_CLIENTS
-
-            def client(c):
-                got[c] = serve_client(port, images[c * per:(c + 1) * per], sizes)
-
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            wall = time.perf_counter() - t0
-            launches = up1_launched("serve")
-            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
-                health = json.loads(r.read())
-        finally:
-            srv.close()
-        if any(x is None for x in got):
-            fail("serve: a client got no grades")
-        grades = [v for c in got for v in c]
-        pipe = grader.pipe
-        # each image's grade from a direct call on the very batch the server
-        # formed (padding rows included): equal bit for bit, whatever dtype
-        served = {images[c * per + i].tobytes(): g for c in range(SERVE_CLIENTS)
-                  for i, g in enumerate(got[c])}
-        rows = {}
-        for batch in formed:
-            for row, g in zip(batch, pipe.infer_grades(torch.from_numpy(batch)).tolist()):
-                rows.setdefault(row.tobytes(), g)
-        checks = {"grades_unlike_their_batch_rerun":
-                  sum(rows.get(k) != g for k, g in served.items())}
+        pipe = srv.batcher._grade_fn.pipe
+        run = drive_server(srv, images, warm)
+        grades, health = run["grades"], run["health"]
+        checks = {"grades_unlike_their_batch_rerun": unlike_batch_rerun(run, pipe.infer_grades)}
         if dtype == torch.float32:
             out = pipe.infer_from_gray(torch.from_numpy(images))
             top2 = out["cls_logits"].topk(2, dim=-1).values
@@ -911,21 +1019,167 @@ def phase_serve(dev, card: str, unet_pt: str, gnet_pt: str) -> None:
             checks["grades_unlike_infer_grades_b64"] = int(
                 ((np.asarray(grades) != out["grades"].cpu().numpy()) & sure).sum())
             checks["left_out_near_ties"] = int((~sure).sum())
-        hist = {int(k): v for k, v in health["batch_size_histogram"].items()}
+        hist = histogram(health)
         say("serve", dtype=dname(dtype), overlap=overlap, warm=warm, card=repr(card),
-            warmed_buckets=buckets, clients=SERVE_CLIENTS, images=len(grades),
-            images_per_s=f"{len(grades) / wall:.1f}", wall_s=f"{wall:.3f}",
+            warmed_buckets=run["buckets"], clients=SERVE_CLIENTS, images=len(grades),
+            images_per_s=f"{len(grades) / run['wall']:.1f}", wall_s=f"{run['wall']:.3f}",
             call_ms_p50=health["call_ms_p50"], call_ms_p99=health["call_ms_p99"],
             call_ms_max=health["call_ms_max"], first_call_ms=f"{srv.batcher.call_ms[0]:.3f}",
             device_calls=health["device_calls"],
             batch_histogram=hist, distinct_grades=len(set(grades)), **checks,
-            launches=launches)
+            launches=run["launches"])
         if (len(grades) != SERVE_IMAGES or checks["grades_unlike_their_batch_rerun"]
                 or checks.get("grades_unlike_infer_grades_b64")):
             fail("serve: the server's grades are not infer_grades' on the same images")
-        if (sum(hist.values()) != health["device_calls"] or health["images"] != SERVE_IMAGES
-                or any(k > 16 or k & (k - 1) for k in hist)):
-            fail(f"serve: /healthz's batch histogram {hist} is not of powers of two <= 16")
+        check_histogram(health, SERVE_IMAGES)
+
+
+def serve_images() -> np.ndarray:
+    """SERVE_IMAGES seeded 400x500 grays in [0, 255]."""
+    g = torch.Generator().manual_seed(SEED + 5)
+    return (torch.rand((SERVE_IMAGES, 400, 500), generator=g) * 255.0).numpy()
+
+
+def dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 2 ** 20
+
+
+def phase_export(dev, card: str, img_dir: str, unet_pt: str, gnet_pt: str) -> dict:
+    """Phase 5d: the serving graph as a torch.export artifact, bf16, raw_hw
+    400x500 (see the module docstring). Returns each serving kernel's
+    launches through the artifacts (the fresh interpreter's, the all-fused
+    artifact's and the server's)."""
+    from unet_goolenet_tpu_torch.apps import export_serving, serve
+    from unet_goolenet_tpu_torch.apps.common import load_two_stage
+    from unet_goolenet_tpu_torch.apps.infer_e2e import read_gray
+    from unet_goolenet_tpu_torch.pipeline import export as E
+
+    pngs = [read_gray(os.path.join(img_dir, f"{i}.png")).astype(np.float32) for i in range(1, 9)]
+    gray = np.stack([np.pad(g, ((0, 400 - g.shape[0]), (0, 500 - g.shape[1])), mode="edge")
+                     for g in pngs])
+    # the images served and chunked: the 8, then copies of them with seeded noise
+    rng = np.random.default_rng(SEED + 12)
+    noisy = gray[np.arange(SERVE_IMAGES - 8) % 8] + rng.normal(0.0, 20.0, (SERVE_IMAGES - 8, 400, 500))
+    images = np.concatenate([gray, np.clip(noisy, 0, 255)]).astype(np.float32)
+    logits = load_two_stage(unet_pt, gnet_pt, dtype=torch.bfloat16, device=dev).infer_from_gray(
+        images)["cls_logits"]
+    gnet_pt = centred_classifier(gnet_pt, logits, "gnet_export.pt")
+
+    # the default pipeline, by the CLI, with a symbolic batch and --check
+    out = os.path.join(WORK, "artifact")
+    t0 = time.perf_counter()
+    meta = export_serving.main(["--unet-checkpoint", unet_pt, "--gnet-checkpoint", gnet_pt,
+                                "--raw-hw", "400", "500", "--out-dir", out, "--bf16",
+                                "--device", str(dev), "--check"])
+    cli_s = time.perf_counter() - t0
+    if meta["fused_levels"] != ["up1"] or meta["static_batch"] is not None:
+        fail(f"export: the default artifact's meta is {meta}")
+    # a fresh interpreter loads it and grades the 8 PNGs at EXPORT_BATCHES
+    np.save(os.path.join(WORK, "export_gray.npy"), gray)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", EXPORT_LOADER, out,
+                          os.path.join(WORK, "export_gray.npy"), *EXPORT_ABSENT],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    loader_s = time.perf_counter() - t0
+    if run.returncode:
+        fail(f"export: the fresh interpreter failed to load and grade:\n{run.stderr[-4000:]}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    pipe = load_two_stage(unet_pt, gnet_pt, dtype=torch.bfloat16, device=dev)
+    want = {str(n): pipe.infer_grades(gray[:n]).tolist() for n in EXPORT_BATCHES}
+    launches = dict(got["launches"])
+    say("export", artifact="default", dtype="bf16", symbolic_batch=True, cli_check_s=f"{cli_s:.2f}",
+        fresh_load_and_grade_s=f"{loader_s:.2f}", artifact_mb=f"{dir_mb(out):.1f}",
+        grades=got["grades"], live_grades=want, distinct_grades=len(set(want["8"])),
+        loaded_model_modules=got["loaded"], launches=launches)
+    if len(set(want["8"])) < 2:
+        fail("export: the fixture graded every image alike: the grade check would have no teeth")
+    if got["grades"] != want:
+        fail("export: the reloaded artifact's grades are not the live pipeline's")
+    if got["loaded"]:
+        fail(f"export: loading the artifact imported {got['loaded']}")
+    if min(launches.values()) == 0:
+        fail(f"export: a kernel of the artifact never launched: {launches}")
+
+    # the all-fused pipeline, keep_fused, at a static batch: EXPORT_STATIC_IMAGES
+    # images run as chunks of EXPORT_STATIC, the last padded with zero images;
+    # all five kernels launch through the artifact
+    fused = load_two_stage(unet_pt, gnet_pt, dtype=torch.bfloat16, device=dev, **FUSED)
+    fout = os.path.join(WORK, "artifact_fused")
+    t0 = time.perf_counter()
+    fmeta = E.export_serving(fused, fout, raw_hw=(400, 500), keep_fused=True,
+                             static_batch=EXPORT_STATIC)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fart = E.load_serving(fout)
+    load_s = time.perf_counter() - t0
+    batch = images[:EXPORT_STATIC_IMAGES]
+    reset_counts()
+    fgot = fart(batch).tolist()
+    counts = {k: v for k, v in read_counts().items() if k in KERNELS}
+    padded = np.concatenate([batch, np.zeros((-len(batch) % EXPORT_STATIC, 400, 500),
+                                             np.float32)])
+    fwant = [g for i in range(0, len(padded), EXPORT_STATIC)
+             for g in fused.infer_grades(padded[i:i + EXPORT_STATIC]).tolist()][:len(batch)]
+    say("export", artifact=f"all-fused static_batch={EXPORT_STATIC}", dtype="bf16",
+        keep_fused=True, export_s=f"{export_s:.2f}", load_s=f"{load_s:.2f}",
+        artifact_mb=f"{dir_mb(fout):.1f}", fused_levels=fmeta["fused_levels"], images=len(fgot),
+        grades=fgot, live_grades_by_chunk=fwant, distinct_grades=len(set(fwant)),
+        launches=counts)
+    if fgot != fwant:
+        fail("export: the all-fused artifact's grades are not the live pipeline's on its chunks")
+    if min(counts.values()) == 0:
+        fail(f"export: a serving kernel never launched through the all-fused artifact: {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # serve --artifact, driven as phase 5c drives serve --live
+    srv = serve.build_server(serve.parse_args(["--artifact", out, "--max-batch", "16",
+                                               "--device", str(dev)]))
+    art = srv.batcher._grade_fn.pipe          # the server's loaded artifact, timed below
+    served = drive_server(srv, images)
+    unlike = unlike_batch_rerun(served, pipe.infer_grades)
+    health = served["health"]
+    say("serve", mode="artifact", dtype="bf16", card=repr(card), warmed_buckets=served["buckets"],
+        clients=SERVE_CLIENTS, images=len(served["grades"]),
+        images_per_s=f"{len(served['grades']) / served['wall']:.1f}",
+        call_ms_p50=health["call_ms_p50"], call_ms_p99=health["call_ms_p99"],
+        first_call_ms=f"{srv.batcher.call_ms[0]:.3f}", device_calls=health["device_calls"],
+        batch_histogram=histogram(health), distinct_grades=len(set(served["grades"])),
+        grades_unlike_live_on_their_batch=unlike, launches=served["launches"])
+    if len(served["grades"]) != SERVE_IMAGES or unlike:
+        fail("serve --artifact: the server's grades are not the live pipeline's on its batches")
+    check_histogram(health, SERVE_IMAGES)
+    for k, v in served["launches"].items():
+        launches[k] += v
+
+    time_artifact(dev, card, {"default": (pipe.infer_grades, art, (16, 64)),
+                              "all-fused": (fused.infer_grades, fart, (EXPORT_STATIC,))})
+    return launches
+
+
+def time_artifact(dev, card: str, pairs: dict) -> None:
+    """bf16 grades of each (live call, its loaded artifact) pair at each of
+    its batch sizes, all calls at one size in turns (forwards, then
+    backwards), each a median of 7 rounds of 3 calls (CUDA events); then
+    the default artifact's host time and one profiled call at each size."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for n in (16, 64):
+        gray = torch.rand((n, 400, 500), generator=g, device=dev) * 255.0
+        calls = {(cfg, how): (lambda f=fn: f(gray))
+                 for cfg, (live, art, sizes) in pairs.items() if n in sizes
+                 for how, fn in (("live", live), ("artifact", art))}
+        runs = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k].append(cuda_ms_spread(calls[k]))
+        for cfg in dict.fromkeys(cfg for cfg, _ in calls):
+            ms = {how: sum(r[0] for r in runs[(cfg, how)]) / 2 for how in ("live", "artifact")}
+            say("timing", what="artifact_vs_live", config=cfg, dtype="bf16", batch=n,
+                live_ms=f"{ms['live']:.3f}", artifact_ms=f"{ms['artifact']:.3f}",
+                artifact_over_live=f"{ms['artifact'] / ms['live']:.4f}",
+                live_run_medians_ms=",".join(f"{r[0]:.3f}" for r in runs[(cfg, 'live')]),
+                artifact_run_medians_ms=",".join(f"{r[0]:.3f}" for r in runs[(cfg, 'artifact')]),
+                rounds=7, calls_per_round=3, card=repr(card))
+        profile_call(calls[("default", "artifact")], f"artifact_bf16_b{n}")
 
 
 def phase_fused(dev, unet, gnet, gray) -> dict:
@@ -1083,7 +1337,8 @@ def stages_by_name(prof, calls: int) -> tuple:
     name."""
     ms, count = {}, {}
     for e in prof.key_averages():
-        if device_us(e) <= 0 or not str(e.device_type).endswith("CUDA"):
+        if (device_us(e) <= 0 or not str(e.device_type).endswith("CUDA")
+                or PRIMER_KERNEL in e.key):
             continue
         stage = level_stage(e.key)
         ms[stage] = ms.get(stage, 0.0) + device_us(e) / 1e3 / calls
@@ -1097,7 +1352,8 @@ def down1_stages(prof, calls: int) -> tuple:
     starts a call, and the first and second conv3x3_gemm launches after it
     are its two convs (one kernel, so only the order tells them apart)."""
     events = sorted((e.time_range.start, device_us(e), e.key) for e in prof.events()
-                    if device_us(e) > 0 and str(e.device_type).endswith("CUDA"))
+                    if device_us(e) > 0 and str(e.device_type).endswith("CUDA")
+                    and PRIMER_KERNEL not in e.key)
     us, count, conv = {}, {}, 0
     for _, dur, name in events:
         if "pool_kernel<" in name:
@@ -1113,7 +1369,7 @@ def down1_stages(prof, calls: int) -> tuple:
             {k: v / calls for k, v in count.items()})
 
 
-def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
+def level_stages(dev, calls: int = 10, tries: int = 5) -> None:
     """The bf16 gate, level and pool + down1 kernels' device time and
     launches by stage, batch 16, at up1 (the gate as up1_gate, the level
     with the head as up1_tail), each dense level (up_gate_dense, up_level)
@@ -1123,12 +1379,15 @@ def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
     layout ("other" is the wrapper's cast of the gate), each gate call the
     conv and the reduce once each and nothing else, and each pool_down1
     call the pool once and the GEMM twice and nothing else.
-    The trace may lose the device events of the first calls after it
-    starts, so one call runs in the profiler's warm-up step, whose events
-    are dropped, and the `calls` in its recorded step. A trace can still
-    lose a few events (one run counted 0.8 and 0.9 launches a call of a
-    gate's two kernels): a count that is not a whole number a call can only
-    be such a loss, so that trace is taken again, up to `tries` times."""
+    One call runs in the profiler's warm-up step, whose events are dropped,
+    and the `calls` in its recorded step, which starts with the primer
+    (prime) and ends with the seal (seal), spins that no stage counts. A
+    trace loses device events at its start (with four spins, runs lost them
+    all and the launches after them, or counted 0.9 launches a call of a
+    gate's conv in each of three tries). A trace is read only if it holds
+    the seal and one of the primer's spins or more, and its counts are whole
+    numbers a call: else it is taken again, up to `tries` times. Fails if
+    none is."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     levels = tuple((h, h, c, cq) for h, c, cq in LEVELS)
@@ -1143,20 +1402,31 @@ def level_stages(dev, calls: int = 10, tries: int = 3) -> None:
             with profile(activities=[ProfilerActivity.CUDA],
                          schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
                 for n in (1, calls):   # the warm-up step, then the recorded one
+                    if n == calls:
+                        prime()
                     for _ in range(n):
                         case.kern()
+                    if n == calls:
+                        seal()
                     torch.cuda.synchronize()
                     prof.step()
+            # (start, is a spin) of each device event in launch order: the first a
+            # primer's spin, the last the seal, when the trace lost no call's
+            order = sorted((e.time_range.start, PRIMER_KERNEL in e.key) for e in prof.events()
+                           if device_us(e) > 0 and str(e.device_type).endswith("CUDA"))
+            spins = sum(spin for _, spin in order)
             ms, count = (down1_stages if case.name == "pool_down1" else stages_by_name)(
                 prof, calls)
-            if all(v == round(v) for v in count.values()):
+            whole = (len(order) > spins >= 2 and order[0][1] and order[-1][1]
+                     and all(v == round(v) for v in count.values()))
+            if whole:
                 break
-        if not ms:
-            say("timing", what=f"{case.name}_stages", shape=repr(case.label),
-                device_time="not measured (the trace holds no device time)")
-            continue
+        if not whole:
+            fail(f"{case.name}: each of {tries} traces lost device events (the last held "
+                 f"{spins} of the {PRIMER_LAUNCHES} + 1 spins and {count} launches a call)")
         say("timing", what=f"{case.name}_stages", shape=repr(case.label), dtype="bfloat16",
-            batch=16, traces=trace, launches_per_call=sum(count.values()),
+            batch=16, traces=trace, spins_seen=f"{spins}/{PRIMER_LAUNCHES + 1}",
+            launches_per_call=sum(count.values()),
             **{f"{k}_launches": v for k, v in count.items()}, sum_ms=f"{sum(ms.values()):.4f}",
             **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()})
         if case.name == "pool_down1":
@@ -1993,8 +2263,9 @@ def host_ms(fn, calls: int = 7):
 def profile_call(fn, what: str):
     """Host time per call, then one traced call: device busy time against
     wall time, the CUDA runtime calls that make the host wait, and the
-    kernels that take most of the device time. Returns the traced call's
-    device launches (kernels and copies), or None without device time."""
+    kernels that take most of the device time; the trace starts with the
+    primer (prime), which nothing counts. Returns the traced call's device
+    launches (kernels and copies), or None without device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2003,16 +2274,18 @@ def profile_call(fn, what: str):
         stat="median")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # device-side events only (kernels, copies), so nothing is counted twice
-    kernels = sorted((e for e in events if str(e.device_type).endswith("CUDA") and device_us(e) > 0),
-                     key=device_us, reverse=True)
+    kernels = sorted((e for e in events if str(e.device_type).endswith("CUDA") and device_us(e) > 0
+                      and PRIMER_KERNEL not in e.key), key=device_us, reverse=True)
     # runtime calls that can hold the host until the device catches up; the
-    # last cudaDeviceSynchronize is this function's own
+    # first cudaDeviceSynchronize (the primer's) and the last are this
+    # function's own
     waits = {e.key: e.count for e in events
              if "Synchronize" in e.key or e.key in ("cudaMemcpy", "cudaMemcpyAsync")}
     if not kernels:
@@ -2039,9 +2312,11 @@ def main() -> None:
     launches, (img_dir, (unet_pt, gnet_pt)) = phase_e2e(dev)
     phase_predict_seg(dev, img_dir, unet_pt)
     phase_serve(dev, card, unet_pt, gnet_pt)
+    export_launches = phase_export(dev, card, img_dir, unet_pt, gnet_pt)
     train_launches, unet_snapshot = phase_train(dev)
     cls_launches = phase_train_cls(dev, unet_snapshot)
-    launches = {k: v + cls_launches.get(k, 0) for k, v in launches.items()}
+    launches = {k: v + cls_launches.get(k, 0) + export_launches.get(k, 0)
+                for k, v in launches.items()}
     kernels = phase_timing(dev, errs, launches, train_errs, train_launches)
     time_train_cls(dev, unet_snapshot)
     print(f"card: {card}", flush=True)

@@ -459,7 +459,7 @@ def test_pipeline_grader_on_a_second_card():
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--artifact", "export_dir"], "not ported yet"),
+    (["--artifact", "export_dir"], "no export_serving artifact"),
     (["--live", "--artifact", "export_dir"], "exactly one"),
     ([], "exactly one"),
     (["--live", "--device", "cpu", "--raw-hw", "40", "48"], "--unet-checkpoint"),

@@ -47,7 +47,7 @@ from unet_goolenet_tpu_torch.apps.common import load_two_stage, visible_devices
 from unet_goolenet_tpu_torch.data import DataLoader, ImageFolderDataset
 from unet_goolenet_tpu_torch.data.datasets import _imread
 from unet_goolenet_tpu_torch.pipeline import TwoStagePipeline
-from unet_goolenet_tpu_torch.pipeline.two_stage import check_device
+from unet_goolenet_tpu_torch.utils.device import check_device
 
 # --device-preprocess without buckets runs at least one batch per distinct raw
 # size, the last of each padded up to --batch-size: past this many sizes the

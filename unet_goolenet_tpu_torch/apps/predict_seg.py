@@ -29,7 +29,7 @@ from PIL import Image
 from unet_goolenet_tpu_torch.data import DataLoader, ImageFolderDataset
 from unet_goolenet_tpu_torch.models import UNetTaskAligWeight, load_reference_state_dict
 from unet_goolenet_tpu_torch.pipeline import engine, segment
-from unet_goolenet_tpu_torch.pipeline.two_stage import check_device, inference
+from unet_goolenet_tpu_torch.utils.device import check_device, inference
 
 
 def parse_args(argv=None):

@@ -2,40 +2,50 @@
 
 Counterpart of the JAX package's `apps/serve.py`, with its flags and
 defaults plus `--device`. The reference's serving story is 分类/test.py, a
-script re-run per dataset; this is a grading endpoint. Live mode builds the
-pipeline from checkpoints (apps/common.py:load_two_stage) and serves it:
+script re-run per dataset; this is a grading endpoint, in two modes:
 
-    python -m unet_goolenet_tpu_torch.apps.serve --live \\
-        --unet-checkpoint unet.pt --gnet-checkpoint gnet.pt \\
-        --raw-hw 400 500 [--bf16] [--warmup] --port 8000
+  artifact: serve an export_serving directory (apps/export_serving.py,
+  pipeline/export.py: a torch.export program with the serving kernels as
+  custom ops, and its weights); no model code is imported:
+
+      python -m unet_goolenet_tpu_torch.apps.serve --artifact artifact/ --port 8000
+
+  live (--live): build the pipeline from checkpoints
+  (apps/common.py:load_two_stage) and serve it:
+
+      python -m unet_goolenet_tpu_torch.apps.serve --live \\
+          --unet-checkpoint unet.pt --gnet-checkpoint gnet.pt \\
+          --raw-hw 400 500 [--bf16] [--warmup] --port 8000
 
     curl -X POST --data-binary @img.npy localhost:8000/v1/grade
     curl localhost:8000/healthz
 
 Concurrent requests are coalesced into padded device batches
 (pipeline/serving.py): the card sees power-of-two batches <= --max-batch,
-and a request waits at most --max-wait-ms for peers. Artifact mode
-(`--artifact`, an exported graph) is not ported yet: export waits for
-ROADMAP.md queue 1, item 4. `--data-parallel` is accepted with one visible
-device; sharding over several is ROADMAP.md queue 1, item 6.
+and a request waits at most --max-wait-ms for peers. Both modes grade
+through `PipelineGrader` (pinned staging, non-blocking copies, CUDA-event
+call times). An artifact runs on the device type it was exported on.
+`--data-parallel` is accepted with one visible device in live mode;
+sharding over several is ROADMAP.md queue 1, item 6.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
-from unet_goolenet_tpu_torch.apps.common import load_two_stage, visible_devices
+from unet_goolenet_tpu_torch.pipeline.export import META, load_serving
 from unet_goolenet_tpu_torch.pipeline.serving import GradingServer, PipelineGrader
-from unet_goolenet_tpu_torch.pipeline.two_stage import check_device
+from unet_goolenet_tpu_torch.utils.device import check_device
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--artifact",
-                   help="export directory (artifact mode; not ported yet)")
+                   help="export_serving output directory (artifact mode)")
     p.add_argument("--live", action="store_true",
                    help="serve the live pipeline built from checkpoints")
     p.add_argument("--unet-checkpoint", help="(--live) stage-1 checkpoint")
@@ -67,13 +77,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_server(args) -> GradingServer:
-    """The live pipeline behind a GradingServer, built from parsed args."""
-    if args.live == (args.artifact is not None):
-        raise SystemExit("pass exactly one of --artifact or --live")
-    if not args.live:
-        raise SystemExit("--artifact: exporting a serving graph is not ported yet "
-                         "(ROADMAP.md queue 1, item 4); serve with --live")
+def _live(args):
+    """The live pipeline from checkpoints, and the server's meta. The model
+    code is imported here, so that artifact mode imports none."""
+    from unet_goolenet_tpu_torch.apps.common import load_two_stage, visible_devices
+
     for flag in ("unet_checkpoint", "gnet_checkpoint", "raw_hw"):
         if getattr(args, flag) is None:
             raise SystemExit(f"--live requires --{flag.replace('_', '-')}")
@@ -87,7 +95,28 @@ def build_server(args) -> GradingServer:
     meta = {"mode": "live", "source": "gray", "raw_hw": list(args.raw_hw),
             "img_size": args.img_size, "dtype": str(dtype).split(".")[1],
             "device": str(pipe.device), "data_parallel": args.data_parallel}
-    return GradingServer(PipelineGrader(pipe), max_batch=args.max_batch,
+    return pipe, meta
+
+
+def _artifact(args):
+    """The loaded artifact on --device, and its meta as the server's."""
+    if not os.path.isfile(os.path.join(args.artifact, META)):
+        raise SystemExit(f"--artifact {args.artifact}: no export_serving artifact there "
+                         f"(no {META})")
+    artifact = load_serving(args.artifact, args.device)
+    if artifact.meta["source"] != "gray":
+        raise SystemExit(f"--artifact {args.artifact}: the server takes (H, W) gray images; "
+                         f"this artifact's source is {artifact.meta['source']!r}")
+    return artifact, dict(artifact.meta)
+
+
+def build_server(args) -> GradingServer:
+    """A GradingServer over the live pipeline (--live) or a loaded artifact
+    (--artifact), built from parsed args."""
+    if args.live == (args.artifact is not None):
+        raise SystemExit("pass exactly one of --artifact or --live")
+    graded, meta = _live(args) if args.live else _artifact(args)
+    return GradingServer(PipelineGrader(graded), max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms,
                          grade_timeout_s=args.grade_timeout_s, meta=meta,
                          overlap=not args.no_overlap)
@@ -100,8 +129,9 @@ def main(argv=None):
         if args.warmup:
             print("warming batch buckets...", flush=True)
             print(f"warmed buckets {server.warmup()}", flush=True)
-        print(f"serving live pipeline (raw_hw={server.meta['raw_hw']}, "
-              f"device={server.meta['device']}) on {args.host}:{args.port}", flush=True)
+        print(f"serving {'live pipeline' if args.live else args.artifact} "
+              f"(raw_hw={server.meta['raw_hw']}, device={server.meta['device']}) "
+              f"on {args.host}:{args.port}", flush=True)
         server.serve(port=args.port, host=args.host)
     except KeyboardInterrupt:
         pass

@@ -46,14 +46,14 @@ from unet_goolenet_tpu_torch.data.augment_device import make_device_augment
 from unet_goolenet_tpu_torch.eval import ClsMetrics
 from unet_goolenet_tpu_torch.models import UNetTaskAligWeight, load_reference_state_dict
 from unet_goolenet_tpu_torch.pipeline import engine as _engine
-from unet_goolenet_tpu_torch.pipeline.two_stage import (
-    check_device, check_fused, extract_roi, inference)
+from unet_goolenet_tpu_torch.pipeline.two_stage import check_fused, extract_roi
 from unet_goolenet_tpu_torch.train import optim
 from unet_goolenet_tpu_torch.train.checkpoint import CheckpointManager
 from unet_goolenet_tpu_torch.train.cls import (
     init_cls_state, make_cls_eval_step, make_cls_train_step)
 from unet_goolenet_tpu_torch.train.epoch import make_cls_epoch_runner
 from unet_goolenet_tpu_torch.utils import MetricLogger, seed_everything
+from unet_goolenet_tpu_torch.utils.device import check_device, inference
 
 
 def parse_args(argv=None):

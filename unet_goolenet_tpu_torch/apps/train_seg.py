@@ -32,7 +32,7 @@ import torch
 
 from unet_goolenet_tpu_torch.data import DataLoader, SegDataset
 from unet_goolenet_tpu_torch.eval import SegMetrics
-from unet_goolenet_tpu_torch.pipeline.two_stage import check_device
+from unet_goolenet_tpu_torch.utils.device import check_device
 from unet_goolenet_tpu_torch.train import optim
 from unet_goolenet_tpu_torch.train.checkpoint import CheckpointManager
 from unet_goolenet_tpu_torch.train.seg import (

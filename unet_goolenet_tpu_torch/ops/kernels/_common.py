@@ -117,6 +117,11 @@ class KernelWeights(NamedTuple):
     plain: Tuple[torch.Tensor, ...]
     kernel: Tuple[torch.Tensor, ...]
 
+    def args(self, t: torch.Tensor) -> list:
+        """The flat weight list a custom op (ops/kernels/library.py) takes
+        beside an activation t: `plain` on the CPU, `kernel` on a card."""
+        return list(self.plain if t.device.type == "cpu" else self.kernel)
+
 
 def kernel_weights(dtype: torch.dtype, plain: Sequence[torch.Tensor],
                    layout: Callable[[], Sequence[torch.Tensor]]) -> KernelWeights:

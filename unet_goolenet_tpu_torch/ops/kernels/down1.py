@@ -19,10 +19,11 @@ in the TPU kernel. Positions outside the image pool to zero whatever the sign
 of x1.
 
 `down1_weights` lays the folded weights out once (`fold_unet`): a call
-launches no weight layout. The wrapper takes its plain version
-(`pool_down1_ref`) only for a tensor on the CPU. For a CUDA tensor it
-launches the kernels or raises. It counts its calls that launch in
-`.launches`.
+launches no weight layout. The wrapper calls the custom op
+`ugt::pool_down1` (ops/kernels/library.py), which takes the plain version
+(`pool_down1_ref`) only for a tensor on the CPU; for a CUDA tensor it
+launches the kernels (`pool_down1_launch`) or raises. Its CUDA
+implementation counts the calls that launch in `pool_down1.launches`.
 """
 
 from __future__ import annotations
@@ -74,18 +75,18 @@ def down1_plans(n: int, h: int, w: int, c: int, co: int, sms: int) -> tuple:
     return conv_plan(False, n, h, w, c, co, sms), conv_plan(False, n, h, w, co, co, sms)
 
 
-def pool_down1(x1: torch.Tensor, wts: KernelWeights) -> torch.Tensor:
-    """maxpool2x2 + down1: (N, H, W, co) as `pool_down1_ref` describes, with
-    weights from `down1_weights`. x1's height and width must be even."""
-    if x1.device.type == "cpu":
-        return pool_down1_ref(x1, *wts.plain)
+def pool_down1_launch(x1: torch.Tensor, weights) -> torch.Tensor:
+    """One call of the kernels (csrc/down1.cu) on a CUDA tensor x1 with
+    weights laid out as `down1_layout` lays them out. Checks every argument
+    first; raises on any failure. `library.pool_down1`'s CUDA
+    implementation."""
     code = dtype_code("pool_down1", x1)
     n, h2, w2, c = x1.shape
     if h2 % 2 or w2 % 2:
         raise ValueError(f"pool_down1: x1's height and width must be even, got {h2}x{w2}")
     h, wd = h2 // 2, w2 // 2
     dev, dt = x1.device, x1.dtype
-    wk1, bk1, wk2, bk2 = wts.kernel
+    wk1, bk1, wk2, bk2 = weights
     co = bk1.shape[0]
     dense_channels("pool_down1", c, co)
     check("x1", x1, (n, h2, w2, c), dt)
@@ -105,8 +106,14 @@ def pool_down1(x1: torch.Tensor, wts: KernelWeights) -> torch.Tensor:
         None if pool is None else pool.data_ptr(), mid.data_ptr(), out.data_ptr(),
         n, h, wd, c, co, plan, stream(x1))
     launched("pool_down1", rc)
-    pool_down1.launches += 1
     return out
+
+
+def pool_down1(x1: torch.Tensor, wts: KernelWeights) -> torch.Tensor:
+    """maxpool2x2 + down1: (N, H, W, co) as `pool_down1_ref` describes, with
+    weights from `down1_weights`. x1's height and width must be even. Calls
+    the op `ugt::pool_down1` (ops/kernels/library.py)."""
+    return torch.ops.ugt.pool_down1(x1, wts.args(x1))
 
 
 pool_down1.launches = 0

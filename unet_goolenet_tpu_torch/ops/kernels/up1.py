@@ -33,10 +33,12 @@ float32. Between stages activations are rounded to the input dtype, and
 biases stay float32, as in the TPU kernels.
 
 `gate_weights` / `tail_weights` lay the folded weights out for the kernels
-once (the engine does it in `fold_unet`), so the wrappers only check and
-launch. Each wrapper takes its plain PyTorch version (`*_ref`) only for a
-tensor on the CPU. For a CUDA tensor it launches the kernel or raises. Each
-counts its calls that launch in `.launches`.
+once (the engine does it in `fold_unet`), so a call only checks and
+launches. Each wrapper calls its custom op (`ugt::up1_gate`,
+`ugt::up1_tail`; ops/kernels/library.py), which takes the plain PyTorch
+version (`*_ref`) only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises. The op's CUDA implementation counts the
+calls that launch in the wrapper's `.launches`.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from unet_goolenet_tpu_torch.ops.conv import conv2d
 from unet_goolenet_tpu_torch.ops.kernels._common import (
     KernelWeights, bias, kernel_weights, round_to)
 from unet_goolenet_tpu_torch.ops.kernels.up2 import (
-    gate_launch, level_launch, level_layout, up_gate_dense_ref, up_gate_weights, up_level_ref)
+    level_layout, up_gate_dense_ref, up_gate_weights, up_level_ref)
 
 KERNEL_CHANNELS = 64
 
@@ -77,7 +79,7 @@ def up1_tail_ref(y, e1, gate1p, w_up, b_up, w_d2, b_d2, w_pair, b_pair,
 # ------------------------------------------------------------ kernel wrappers
 
 
-def _check_channels(t: torch.Tensor) -> None:
+def check_channels(t: torch.Tensor) -> None:
     if t.shape[-1] != KERNEL_CHANNELS:
         raise ValueError(f"up1 kernels take C={KERNEL_CHANNELS}, got {t.shape[-1]}")
 
@@ -98,25 +100,15 @@ def tail_weights(w_up, b_up, w_d2, b_d2, w_pair, b_pair, w_blk1, b_blk1, w_outc,
 
 def up1_gate(x1: torch.Tensor, wts: KernelWeights):
     """Gate pass of up1: (e1, mean, max) as `up1_gate_ref` describes, with
-    weights from `gate_weights`."""
-    if x1.device.type == "cpu":
-        return up1_gate_ref(x1, *wts.plain)
-    _check_channels(x1)
-    out = gate_launch("up1_gate", x1, wts)
-    up1_gate.launches += 1
-    return out
+    weights from `gate_weights`; the op `ugt::up1_gate`."""
+    return torch.ops.ugt.up1_gate(x1, wts.args(x1))
 
 
 def up1_tail(y: torch.Tensor, e1: torch.Tensor, gate1p: torch.Tensor,
              wts: KernelWeights) -> torch.Tensor:
     """up1 level + 1x1 head: logits as `up1_tail_ref` describes, with
-    weights from `tail_weights`."""
-    if y.device.type == "cpu":
-        return up1_tail_ref(y, e1, gate1p, *wts.plain)
-    _check_channels(y)
-    out = level_launch("up1_tail", y, e1, gate1p, wts)
-    up1_tail.launches += 1
-    return out
+    weights from `tail_weights`; the op `ugt::up1_tail`."""
+    return torch.ops.ugt.up1_tail(y, e1, gate1p, wts.args(y))
 
 
 up1_gate.launches = 0

@@ -43,9 +43,11 @@ kernel's points; biases stay float32.
 `up_gate_weights` / `up_level_weights` lay the folded weights out once (the
 engine does it in `fold_unet`): a gate or level call launches no weight
 layout.
-Each wrapper takes its plain version (`*_ref`) only for a tensor on the
-CPU. For a CUDA tensor it launches the kernel or raises. Each counts its
-calls that launch in `.launches`.
+Each wrapper calls its custom op (`ugt::up_gate_dense`, `ugt::up_level`;
+ops/kernels/library.py), which takes the plain version (`*_ref`) only for
+a tensor on the CPU; for a CUDA tensor it launches the kernel
+(`gate_launch`, `level_launch`) or raises. The op's CUDA implementation
+counts the calls that launch in the wrapper's `.launches`.
 """
 
 from __future__ import annotations
@@ -150,16 +152,18 @@ def level_shapes(c: int, cq: int, dtype) -> tuple:
                  for co, ci, k in ((4 * c, c, 1), (c, c, 3), (cq, 2 * c, 3), (cq, cq, 3)))
 
 
-def gate_launch(name: str, x: torch.Tensor, wts: KernelWeights):
+def gate_launch(name: str, x: torch.Tensor, weights):
     """One call of the gate kernels (csrc/gate.cu: the conv with its
     statistics' partials, then their reduce) on a CUDA tensor x (N, H, W,
-    C): (e1, mean, max). Checks every argument first."""
+    C) with weights laid out as `gate_layout` lays them out: (e1, mean,
+    max). Checks every argument first; raises on any failure. The CUDA
+    implementation of `library.up_gate_dense` and `library.up1_gate`."""
     code = dtype_code(name, x)
     n, h, wd, c = x.shape
     dense_channels(name, c)
     dev, dt = x.device, x.dtype
     check("x", x, (n, h, wd, c), dt)
-    wk, bk = wts.kernel
+    wk, bk = weights
     check("w", wk, gate_shape(c, dt), dt)
     check("b", bk, (c,), torch.float32)
     plan = None
@@ -170,37 +174,35 @@ def gate_launch(name: str, x: torch.Tensor, wts: KernelWeights):
         slots = lib_fn("gate_tiles", [INT, INT])(h, wd)
     e1 = torch.empty_like(x)
     part = torch.empty((2, n, slots, c), device=dev, dtype=torch.float32)
-    stats = torch.empty((2, n, c), device=dev, dtype=torch.float32)
+    mean = torch.empty((n, c), device=dev, dtype=torch.float32)
+    mx = torch.empty_like(mean)
     rc = lib_fn("gate_launch", [INT] + [PTR] * 8 + [INT] * 4 + [PTR] * 2)(
         code, x.data_ptr(), wk.data_ptr(), bk.data_ptr(), e1.data_ptr(),
-        part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        part[0].data_ptr(), part[1].data_ptr(), mean.data_ptr(), mx.data_ptr(),
         n, h, wd, c, plan, stream(x))
     launched(name, rc)
-    return e1, stats[0], stats[1]
+    return e1, mean, mx
 
 
 def up_gate_dense(x: torch.Tensor, wts: KernelWeights):
     """Dense gate pass: (e1, mean, max) as `up_gate_dense_ref` describes,
-    with weights from `up_gate_weights`."""
-    if x.device.type == "cpu":
-        return up_gate_dense_ref(x, *wts.plain)
-    out = gate_launch("up_gate_dense", x, wts)
-    up_gate_dense.launches += 1
-    return out
+    with weights from `up_gate_weights`; the op `ugt::up_gate_dense`."""
+    return torch.ops.ugt.up_gate_dense(x, wts.args(x))
 
 
 def level_launch(name: str, x: torch.Tensor, e1: torch.Tensor, gate1p: torch.Tensor,
-                 wts: KernelWeights) -> torch.Tensor:
+                 weights) -> torch.Tensor:
     """One call of the level kernel (csrc/up_level.cu, four launches) on
-    CUDA tensors: (N, H, W, cq) from weights laid out as `up_level_weights`
+    CUDA tensors: (N, H, W, cq) from weights laid out as `level_layout`
     lays them out, or the 1x1 head's (N, H, W, ncls) logits when the weights
     end with the head's (w_outc (cq, ncls), b_outc), as `up1.tail_weights`
-    lays them out. Checks every argument first."""
+    lays them out. Checks every argument first; raises on any failure. The
+    CUDA implementation of `library.up_level` and `library.up1_tail`."""
     code = dtype_code(name, x)
     n, h2, w2, c = x.shape
     h, wd = 2 * h2, 2 * w2
     dev, dt = x.device, x.dtype
-    wup, b_up, wd2, b_d2, wpair, b_pair, wblk1, b_blk1, *head = wts.kernel
+    wup, b_up, wd2, b_d2, wpair, b_pair, wblk1, b_blk1, *head = weights
     cq = b_pair.shape[0]
     dense_channels(name, c, cq)
     check("x", x, (n, h2, w2, c), dt)
@@ -244,12 +246,9 @@ def level_launch(name: str, x: torch.Tensor, e1: torch.Tensor, gate1p: torch.Ten
 def up_level(x: torch.Tensor, e1: torch.Tensor, gate1p: torch.Tensor,
              wts: KernelWeights) -> torch.Tensor:
     """One decoder level after its gate pass: (N, H, W, cq) as
-    `up_level_ref` describes, with weights from `up_level_weights`."""
-    if x.device.type == "cpu":
-        return up_level_ref(x, e1, gate1p, *wts.plain)
-    out = level_launch("up_level", x, e1, gate1p, wts)
-    up_level.launches += 1
-    return out
+    `up_level_ref` describes, with weights from `up_level_weights`; the op
+    `ugt::up_level`."""
+    return torch.ops.ugt.up_level(x, e1, gate1p, wts.args(x))
 
 
 up_gate_dense.launches = 0

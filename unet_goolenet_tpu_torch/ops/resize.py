@@ -53,14 +53,28 @@ def _weights_from_samples(sample_f: np.ndarray, n_in: int, inv_scale: np.float32
     return np.ascontiguousarray(w.T.astype(np.float32))          # (n_out, n_in)
 
 
-@functools.lru_cache(maxsize=64)
+_WEIGHTS: dict = {}     # (n_in, n_out, antialias, device) -> weight_mat's tensor
+_WEIGHTS_MAX = 64
+
+
 def weight_mat(n_in: int, n_out: int, antialias: bool,
                device=None) -> torch.Tensor:
     """(n_out, n_in) float32 resize weights for one axis, built once per
     device (callers must not write to it). Made outside inference mode, so
-    that the cached tensor also serves calls that track gradients."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(_weight_mat_np(n_in, n_out, antialias)).to(device)
+    that the cached tensor also serves calls that track gradients. A trace
+    (torch.export, pipeline/export.py) reads the cache but never fills it:
+    what it builds is a traced value, which would poison later calls, and
+    what it reads enters the traced graph as a constant on the device."""
+    key = (n_in, n_out, antialias, device)
+    w = _WEIGHTS.get(key)
+    if w is None:
+        with torch.inference_mode(False):
+            w = torch.from_numpy(_weight_mat_np(n_in, n_out, antialias)).to(device)
+        if not torch.compiler.is_compiling():
+            if len(_WEIGHTS) >= _WEIGHTS_MAX:
+                _WEIGHTS.clear()
+            _WEIGHTS[key] = w
+    return w
 
 
 def resize_planes(x: torch.Tensor, out_hw: Tuple[int, int], *,

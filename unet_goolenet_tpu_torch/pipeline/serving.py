@@ -121,7 +121,9 @@ class _Graded:
 
 
 class PipelineGrader:
-    """A TwoStagePipeline's `infer_grades` as MicroBatcher's grade_fn.
+    """A TwoStagePipeline's `infer_grades` as MicroBatcher's grade_fn, or a
+    loaded serving artifact's (pipeline/export.py:ServingArtifact, which
+    has the same `infer_grades` and `device`).
 
     On the card the call returns before the device finishes: the batch is
     copied into a pinned host buffer (two per size, used in turn, each

@@ -18,7 +18,6 @@ call.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -27,21 +26,7 @@ from unet_goolenet_tpu_torch.ops.bbox import roi_from_mask
 from unet_goolenet_tpu_torch.ops.resize import resize_bilinear_valid, resize_planes
 from unet_goolenet_tpu_torch.ops.wavelet import wavelet_enhance, wavelet_enhance_padded
 from unet_goolenet_tpu_torch.pipeline import engine
-
-
-def inference(fn):
-    """Run fn in inference mode with TF32 off, and restore the TF32 flags
-    after: PyTorch lets cuDNN convs use TF32 for float32 by default."""
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            with torch.inference_mode():
-                return fn(*args, **kwargs)
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-    return run
+from unet_goolenet_tpu_torch.utils.device import check_device, inference
 
 
 def preprocess_gray(gray: torch.Tensor, *, out_hw: Tuple[int, int] = (224, 224)
@@ -80,16 +65,6 @@ def extract_roi(imgs: torch.Tensor, masks: torch.Tensor, *, padding: int = 30,
     (crops (N, oh, ow, 3), boxes (N, 4) [y0, y1, x0, x1])."""
     crops, boxes = roi_from_mask(imgs, masks, padding=padding, out_hw=out_hw)
     return crops.flip(-1), boxes
-
-
-def check_device(device) -> torch.device:
-    """torch.device(device); raises for a CUDA device when there is none,
-    so that nothing falls back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {str(device)!r}: no CUDA device is available; "
-                           "pass device='cpu' to run on the CPU")
-    return dev
 
 
 def check_fused(img_size: int, **knobs: bool) -> Dict[str, bool]:
